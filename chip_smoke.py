@@ -10,18 +10,30 @@ line):
   1. the card's name and power limit; build the CUDA kernels (nvcc, one
      process per source, in parallel) and the native host library from the
      checkout's sources;
-  2. each kernel against its plain PyTorch twin on the card, bit for bit, on
-     real chunks built by the port's host pipeline at the production shapes
-     (DP K=8/B=512/W=1280 and K=48/B=128/W=2560; the backtrack on the same
-     chunks), each filled with the E. coli and slice windows that make the
-     main path choose that shape, with CUDA-event timings and bounds counted
-     from the chunk's data;
+  2. each kernel (the three DP formulations v2, base and dynamic-K, and the
+     backtrack) against its plain PyTorch twin on the card, bit for bit, on
+     real chunks built by the port's host pipeline at the four production
+     shapes (K/B/W 8/512/1280, 8/128/1280, 8/128/2560, 48/128/2560), each
+     filled with the E. coli and slice windows that make the main path
+     choose that shape, with CUDA-event timings and bounds counted from the
+     chunk's data; the three DP kernels must also agree with each other;
   3. the main path: testdata/ecoli.* (one 4.6 Mb contig, k21 table,
      min_ctg_len=1000, -t 1) through orchestrator.polish(engine="cuda");
      output must equal testdata/ecoli.truth.fa, every kernel must launch and
      no plain twin may;
-  4. testdata/slice.* with k21+k31 against slice.golden.fa.
-Then one JSON line of per-kernel numbers, the card line, and the result line.
+  4. testdata/slice.* with k21+k31 against slice.golden.fa;
+  5. E. coli again with dp_variant="dynk" (dense tables shipped whole, the
+     dynamic-K kernel) and the slice with dp_variant="base" (blob route):
+     same bytes, and the launch counts prove which kernel ran;
+  6. testdata/m20.* (20 contigs) at threads=8 through the cross-contig
+     batcher and at threads=1: 20/20 contigs equal to m20.truth.fa;
+  7. batcher runs forced onto the dense fallback (requests without a CSR
+     closure), under the default variant and under dynamic-K: the rows of
+     the CSR-direct run.
+Every path is driven with the launch counts set to 0 just before it and read
+just after. Then one JSON line of per-kernel numbers (launches per polish()
+path of phases 3-6 and their sum; phase 7's counts stay in its own lines),
+the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -42,7 +54,13 @@ DATA = os.path.join(HERE, "testdata")
 # non-tensor-core 32-bit rate, used here for int32 compare/select steps
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-DP_SHAPES = [(8, 512, 1280), (48, 128, 2560)]   # (K, B, W)
+NEG_INF = -(1 << 30)
+DP_SHAPES = [(8, 512, 1280), (8, 128, 1280), (8, 128, 2560),
+             (48, 128, 2560)]   # (K, B, W)
+KERNELS = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk",
+           "backtrack_packed")
+TWINS = ("consensus_dp_plain", "consensus_dp_base_plain",
+         "consensus_dp_dynk_plain", "backtrack_plain")
 NARROW_W = 1280   # the narrow width tier at the default window_len of 1024
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 3
@@ -140,7 +158,9 @@ def chunk_tables(pieces: list, K: int, W: int, dev):
     """A real chunk of width W and K slots: each (source, ids) piece goes
     through the main path's blob packing (engine.chunk_blob), upload, parse
     and assembly (consensus.blob_tables); the lanes are concatenated.
-    Returns the DP and backtrack inputs on `dev`."""
+    Returns the DP and backtrack inputs on `dev`, and the host
+    aggregation's overflow flag per lane (such a window is re-run by the
+    host fallback and its device rows are discarded)."""
     import torch
 
     from nextpolish2_tpu_torch.ops.consensus import blob_tables
@@ -148,10 +168,11 @@ def chunk_tables(pieces: list, K: int, W: int, dev):
 
     parts = []
     for src, ids in pieces:
-        blob, P, Pd, Pe, _, _ = chunk_blob(src["wb"], ids, W, K, len(ids),
-                                           src["anchors"])
+        blob, P, Pd, Pe, over, _ = chunk_blob(src["wb"], ids, W, K, len(ids),
+                                              src["anchors"])
         parts.append(blob_tables(blob, B=len(ids), W=W, K=K, P=P, Pd=Pd,
-                                 Pe=Pe, device=dev))
+                                 Pe=Pe, device=dev)
+                     + (torch.from_numpy(over).to(dev),))
     return tuple(torch.cat(t) for t in zip(*parts))
 
 
@@ -162,76 +183,143 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
     from nextpolish2_tpu_torch.ops import consensus_cuda as cc
 
     pieces = pick_lanes(sources, K, B, W)
-    key, cnt, cov, lead, seed, last_col = chunk_tables(pieces, K, W, dev)
+    key, cnt, cov, lead, seed, last_col, over = chunk_tables(pieces, K, W,
+                                                             dev)
     span = last_col + 1
     live = (key >= 0).sum(-1)
+    n_slots = live.to(torch.int32)
     live_max = int(live.max())
     if K > 8 and live_max <= 8:
         fail(f"K={K} chunk has no column with more than 8 live slots")
     if W > NARROW_W and int(span.max()) <= NARROW_W:
         fail(f"W={W} chunk has no window wider than {NARROW_W}")
     ms_steps = W + 128
-    sk, bk = cc.consensus_dp_v2(key, cnt, cov, lead, seed, span)
-    sp, bp = cc.consensus_dp_plain(key, cnt, cov, lead, seed, span)
+    shape = f"K={K} B={B} W={W}"
+    dps = {
+        "consensus_dp_v2": (
+            lambda: cc.consensus_dp_v2(key, cnt, cov, lead, seed, span),
+            lambda: cc.consensus_dp_plain(key, cnt, cov, lead, seed, span)),
+        "consensus_dp_base": (
+            lambda: cc.consensus_dp_base(key, cnt, cov, lead, seed),
+            lambda: cc.consensus_dp_base_plain(key, cnt, cov, lead, seed)),
+        "consensus_dp_dynk": (
+            lambda: cc.consensus_dp_dynk(key, cnt, cov, n_slots, lead, seed),
+            lambda: cc.consensus_dp_dynk_plain(key, cnt, cov, n_slots, lead,
+                                               seed)),
+    }
+    out, err, ms, plain_ms = {}, {}, {}, {}
+    for name, (kern, twin) in dps.items():
+        sk, bk = kern()
+        sp, bp = twin()
+        torch.cuda.synchronize()
+        err[name] = max(int((sk.long() - sp.long()).abs().max()),
+                        int((bk.long() - bp.long()).abs().max()))
+        if err[name] != 0 or not (torch.equal(sk, sp) and torch.equal(bk, bp)):
+            fail(f"{name} != its plain twin at {shape}")
+        out[name] = (sk, bk)
+    # the three formulations: scores everywhere, besti on valid slots. On
+    # a window that lost slots to the K cap (flagged for the host fallback)
+    # a chain may hang off a slot without predecessor and sink below
+    # NEG_INF-1, where the running pick and the _pick reduction part by
+    # design: there they must agree on every reachable score
+    sk, bk = out["consensus_dp_v2"]
+    valid = key >= 0
+    parted = {}
+    for name in ("consensus_dp_base", "consensus_dp_dynk"):
+        so, bo = out[name]
+        same = (so == sk) & ((bo == bk) | ~valid)
+        reach = (so > NEG_INF) | (sk > NEG_INF)
+        if not bool(same[~over].all()) or bool((~same & reach).any()):
+            fail(f"{name} != consensus_dp_v2 at {shape}")
+        parted[name] = int((~same).sum())
+    if not torch.equal(*(out[n][0] for n in ("consensus_dp_base",
+                                             "consensus_dp_dynk"))):
+        fail(f"consensus_dp_base != consensus_dp_dynk scores at {shape}")
+
+    def bt_kern(lc=last_col):
+        return cc.backtrack_packed(key, cnt, cov, sk, bk, lc, seed, ms_steps)
+
+    def bt_twin(lc=last_col):
+        return cc.backtrack_plain(key, cnt, cov, sk, bk, lc, seed, ms_steps)
+
+    ok, op = bt_kern(), bt_twin()
     torch.cuda.synchronize()
-    dp_err = max(int((sk.long() - sp.long()).abs().max()),
-                 int((bk.long() - bp.long()).abs().max()))
-    if dp_err != 0 or not (torch.equal(sk, sp) and torch.equal(bk, bp)):
-        fail(f"consensus_dp_v2 != plain at K={K} B={B} W={W}")
-    ok = cc.backtrack_packed(key, cnt, cov, sk, bk, last_col, seed, ms_steps)
-    op = cc.backtrack_plain(key, cnt, cov, sk, bk, last_col, seed, ms_steps)
-    torch.cuda.synchronize()
-    bt_err = int((ok.long() - op.long()).abs().max())
-    if bt_err != 0:
-        fail(f"backtrack_packed != plain at K={K} B={B} W={W}")
+    err["backtrack_packed"] = int((ok.long() - op.long()).abs().max())
+    if err["backtrack_packed"] != 0:
+        fail(f"backtrack_packed != plain at {shape}")
+    # the packed output is the same from each formulation's scores
+    for name in ("consensus_dp_base", "consensus_dp_dynk"):
+        so, bo = out[name]
+        if not torch.equal(ok, cc.backtrack_packed(key, cnt, cov, so, bo,
+                                                   last_col, seed, ms_steps)):
+            fail(f"packed output under {name} != under v2 at {shape}")
     # a window wider than the chunk (host-fallback bound) starts clamped
     wide = last_col.clone()
     wide[0] = W + 50
-    if not torch.equal(
-            cc.backtrack_packed(key, cnt, cov, sk, bk, wide, seed, ms_steps),
-            cc.backtrack_plain(key, cnt, cov, sk, bk, wide, seed, ms_steps)):
+    if not torch.equal(bt_kern(wide), bt_twin(wide)):
         fail(f"backtrack_packed != plain with last_col past W={W}")
 
-    dp_ms = median_ms(lambda: cc.consensus_dp_v2(key, cnt, cov, lead, seed,
-                                                 span), TIMED_LAUNCHES)
-    dp_plain = median_ms(lambda: cc.consensus_dp_plain(key, cnt, cov, lead,
-                                                       seed, span),
-                         PLAIN_RUNS)
-    bt_ms = median_ms(lambda: cc.backtrack_packed(
-        key, cnt, cov, sk, bk, last_col, seed, ms_steps), TIMED_LAUNCHES)
-    bt_plain = median_ms(lambda: cc.backtrack_plain(
-        key, cnt, cov, sk, bk, last_col, seed, ms_steps), PLAIN_RUNS)
+    for name, (kern, twin) in {**dps, "backtrack_packed":
+                               (bt_kern, bt_twin)}.items():
+        ms[name] = median_ms(kern, TIMED_LAUNCHES)
+        plain_ms[name] = median_ms(twin, PLAIN_RUNS)
 
-    # DP bound, from this chunk's data. Bytes: key and cnt (K slots) and
-    # cov read once for each column below a window's span, scores and besti
-    # written once for every column, and the per-window scalars. Operations:
-    # ~20 int32 ops to decode each slot read, and ~4 (match test and running
-    # pick) for each pair of live slots in adjacent columns
+    # DP bounds, from this chunk's data: what each function has to touch.
+    # Bytes: on every column it scans (v2: below each window's span; base
+    # and dynamic-K: all W columns) v2 and base read the key of all K slots
+    # (validity is in the key) and the cnt of the live ones, dynamic-K
+    # reads n_slots and then key and cnt of the first min(n_slots, K) slots
+    # only; plus cov per scanned column, scores and besti written once for
+    # every column, and the per-window scalars. Operations: ~20 int32 ops to
+    # decode each live slot, and ~4 (match test and pick) for each pair of
+    # live slots in adjacent columns
     below = torch.arange(W, device=dev)[None, :] < span.clamp(0, W)[:, None]
     cols = int(below.sum())
-    live = (live * below).long()
-    pairs = int((live[:, 1:] * live[:, :-1]).sum())
-    dp_bytes = cols * (K * 8 + 4) + B * W * K * 5 + B * (4 + 1 + 4)
-    dp_ops = 20 * cols * K + 4 * pairs
+    live = live.long()
+    live_all = int(live.sum())
+    live_below = int((live * below).sum())
+    given = int(n_slots.clamp(0, K).long().sum())
+    pairs_all = int((live[:, 1:] * live[:, :-1]).sum())
+    live_b = live * below
+    pairs_below = int((live_b[:, 1:] * live_b[:, :-1]).sum())
+    out_bytes = B * W * K * 5
+    work = {
+        "consensus_dp_v2": (
+            cols * (K * 4 + 4) + live_below * 4 + out_bytes + B * 9,
+            20 * live_below + 4 * pairs_below),
+        "consensus_dp_base": (
+            B * W * (K * 4 + 4) + live_all * 4 + out_bytes + B * 5,
+            20 * live_all + 4 * pairs_all),
+        "consensus_dp_dynk": (
+            B * W * 8 + given * 8 + out_bytes + B * 5,
+            20 * given + 4 * pairs_all),
+    }
     # backtrack bound: the states the walks visit (key, cnt, cov, besti),
     # the start column's scores, and the packed output; ~30 int ops a step
     visited = int(ok[:, ms_steps + 2].long().sum()) + B
-    bt_bytes = visited * 13 + B * K * 4 + B * 9 + B * (ms_steps + 8) * 2
-    bt_ops = 30 * visited
+    work["backtrack_packed"] = (
+        visited * 13 + B * K * 4 + B * 9 + B * (ms_steps + 8) * 2,
+        30 * visited)
+    csrc = "nextpolish2_tpu_torch/csrc/"
+    pallas = "nextpolish2_tpu/ops/consensus_pallas.py:"
+    where = {
+        "consensus_dp_v2": (csrc + "consensus_dp.cu", pallas + "152"),
+        "consensus_dp_base": (csrc + "consensus_dp_base.cu", pallas + "69"),
+        "consensus_dp_dynk": (csrc + "consensus_dp_dynk.cu", pallas + "294"),
+        "backtrack_packed": (csrc + "backtrack.cu",
+                             "nextpolish2_tpu/ops/consensus.py:320"),
+    }
     rows = []
-    for name, src, replaces, ms, plain, nbytes, nops, err in [
-            ("consensus_dp_v2", "nextpolish2_tpu_torch/csrc/consensus_dp.cu",
-             "nextpolish2_tpu/ops/consensus_pallas.py:152", dp_ms, dp_plain,
-             dp_bytes, dp_ops, dp_err),
-            ("backtrack_packed", "nextpolish2_tpu_torch/csrc/backtrack.cu",
-             "nextpolish2_tpu/ops/consensus.py:320", bt_ms, bt_plain,
-             bt_bytes, bt_ops, bt_err)]:
+    for name in KERNELS:
+        nbytes, nops = work[name]
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = nops / PEAK_OPS_PER_S * 1e3
         rows.append({
             "name": name, "shape": {"K": K, "B": B, "W": W},
-            "route": "cuda", "source": src, "replaces": replaces,
-            "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "route": "cuda", "source": where[name][0],
+            "replaces": where[name][1],
+            "launches": 0, "max_abs_err": err[name], "ms": ms[name],
+            "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None})
@@ -239,11 +327,17 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
                       "lanes": {s["source"]: [len(ids), len(set(ids.tolist()))]
                                 for s, ids in pieces},
                       "span_max": int(span.max()), "cols": cols,
-                      "live_slots_max": live_max, "rows": rows}))
+                      "live_slots_max": live_max,
+                      "live_slots_mean": float(live.float().mean()),
+                      "overflow_lanes": int(over.sum()),
+                      "unreachable_slots_where_formulations_part": parted,
+                      "rows": rows}), flush=True)
     return rows
 
 
-def polish_check(fa: str, bam: str, yaks: list, truth: str, device) -> dict:
+def polish_check(fa: str, bam: str, yaks: list, truth: str, device,
+                 threads: int = 1, dp_variant=None) -> dict:
+    """polish() on testdata files; every contig must equal `truth`."""
     from nextpolish2_tpu_torch.config import PolishConfig
     from nextpolish2_tpu_torch.io.fastx import read_fastx
     from nextpolish2_tpu_torch.pipeline.orchestrator import PolishStats, polish
@@ -253,21 +347,147 @@ def polish_check(fa: str, bam: str, yaks: list, truth: str, device) -> dict:
     t0 = time.time()
     polish(os.path.join(DATA, fa), os.path.join(DATA, bam),
            [os.path.join(DATA, y) for y in yaks],
-           PolishConfig(min_ctg_len=1000), engine="cuda", out=sink,
-           stats=stats, device=device)
+           PolishConfig(min_ctg_len=1000, threads=threads), engine="cuda",
+           out=sink, stats=stats, device=device, dp_variant=dp_variant)
     wall = time.time() - t0
     sink.seek(0)
-    got = [line for line in sink.read().splitlines()
-           if not line.startswith(b">")]
+    lines = sink.read().splitlines()
+    got_names = [ln[1:].split()[0] for ln in lines if ln.startswith(b">")]
+    got = [ln for ln in lines if not ln.startswith(b">")]
     want = [seq for _name, seq in read_fastx(os.path.join(DATA, truth))]
+    names = [name for name, _seq in read_fastx(os.path.join(DATA, fa))]
     if len(got) != len(want):
         fail(f"{fa}: {len(got)} contigs out, {len(want)} in {truth}")
+    if [n.decode() for n in got_names] != names:
+        fail(f"{fa}: contigs were not written in input order")
     for i, (g, w) in enumerate(zip(got, want)):
         if g != w:
             fail(f"{fa}: contig {i} differs from {truth}")
-    return {"wall_s": wall, "contigs": stats.contigs,
+    return {"wall_s": wall, "threads": threads, "dp_variant": dp_variant,
+            "contigs": stats.contigs, "identical": f"{len(got)}/{len(want)}",
             "bases_in": stats.in_bases, "bases_out": stats.out_bases,
-            "identical_to": truth}
+            "identical_to": truth, "batches": stats.batches,
+            "batch_fill": stats.batch_fill, "csr_batches": stats.csr_batches,
+            "dense_reasons": stats.dense_reasons}
+
+
+class Paths:
+    """Drives one path at a time with the launch counts at 0 before it,
+    reads them after it, checks which kernels ran, and keeps each path's
+    per-shape counts: those of the polish() paths go into the kernels line
+    (keep=True); a batcher check's stay in its own phase line."""
+
+    def __init__(self):
+        self.by_path: dict = {}     # phase -> {(name, K, B, W): launches}
+        self.shapes: set = set()    # every (name, K, B, W) any path launched
+
+    def run(self, phase: str, must_launch: tuple, must_not: tuple, fn,
+            keep: bool = True):
+        from nextpolish2_tpu_torch.ops import consensus_cuda as cc
+        from nextpolish2_tpu_torch.pipeline import engine
+        from nextpolish2_tpu_torch.utils import timing
+
+        cc.reset_counts()
+        engine.STATS.clear()
+        timing.reset()
+        timing.enable()
+        cc.time_launches(True)
+        res = fn()
+        cc.time_launches(False)
+        timing.enable(False)
+        launches = dict(cc.LAUNCHES)
+        by_shape = dict(cc.SHAPE_LAUNCHES)
+        kernel_ms = cc.launch_ms()
+        for name in must_launch:
+            if launches.get(name, 0) == 0:
+                fail(f"{phase}: {name} was not launched")
+        for name in must_not + TWINS:
+            if launches.get(name, 0) != 0:
+                fail(f"{phase}: {name} ran ({launches[name]} times)")
+        self.shapes.update(by_shape)
+        if keep:
+            self.by_path[phase] = by_shape
+        device_ms = sum(kernel_ms.values())
+        res = dict(res or {})
+        res.update({"windows": engine.STATS["windows"],
+                    "chunks": engine.STATS["chunks"],
+                    "host_fallback_windows":
+                        engine.STATS["host_fallback_windows"],
+                    "oracle_fallback_contigs":
+                        engine.STATS["oracle_fallback_contigs"],
+                    "launches": launches, "kernel_ms": kernel_ms,
+                    "kernel_ms_total": device_ms})
+        if "wall_s" in res:
+            res["kernel_idle_share"] = 1 - device_ms / 1e3 / res["wall_s"]
+        print(json.dumps({"phase": phase, **res,
+                          "by_shape": {f"{n}@K{k}xB{b}xW{w}": c
+                                       for (n, k, b, w), c
+                                       in sorted(by_shape.items())}}),
+              flush=True)
+        stages = timing.snapshot()
+        print(json.dumps({"phase": phase + "_stages_s",
+                          **{k: stages[k] for k in
+                             sorted(stages, key=lambda k: -stages[k])}}),
+              flush=True)
+        timing.reset()
+        return res
+
+
+def dense_fallback_check(src: dict, dev, dp_variant: str, n: int) -> dict:
+    """The first n narrow K=8 windows of `src` through a DeviceBatcher twice,
+    with and without their CSR closure: the second run must take the dense
+    format (reason no_csr_closure) and give the first run's rows."""
+    import numpy as np
+
+    from nextpolish2_tpu_torch.pipeline.batcher import DeviceBatcher
+    from nextpolish2_tpu_torch.pipeline.engine import (K_SMALL,
+                                                       resolve_dp_variants)
+    from nextpolish2_tpu_torch.pipeline.windows import (aggregate_csr_parts,
+                                                        aggregate_host)
+
+    wb = src["wb"]
+    lead, seed, last = src["anchors"]
+    ids_all = np.nonzero((src["span"] <= NARROW_W)
+                         & (src["ktier"] == K_SMALL))[0][:n]
+    SUB = 32
+    rows, stats = {}, {}
+    for with_csr in (True, False):
+        b = DeviceBatcher(dev, resolve_dp_variants(dp_variant))
+        try:
+            futs = []
+            for c0 in range(0, len(ids_all), SUB):
+                ids = ids_all[c0 : c0 + SUB]
+                futs.append(b.submit(
+                    (NARROW_W, K_SMALL), len(ids),
+                    lambda ids=ids: aggregate_host(
+                        wb, K_SMALL, width=NARROW_W, n_windows=len(ids),
+                        win_idx=ids),
+                    lead[ids], seed[ids], last[ids],
+                    aggregate_csr=(lambda lo, hi, ids=ids: aggregate_csr_parts(
+                        wb, K_SMALL, width=NARROW_W, n_windows=hi - lo,
+                        win_idx=ids[lo:hi])) if with_csr else None))
+            rows[with_csr] = [w for f in futs for w in f.result(timeout=300)]
+        finally:
+            b.shutdown()
+        stats[with_csr] = b.stats
+    st = stats[False]
+    if st.batches == 0 or st.csr_batches != 0 or \
+            st.dense_reasons != {"no_csr_closure": st.batches}:
+        fail(f"dense fallback not taken: {st.batches} batches, "
+             f"{st.csr_batches} CSR, {st.dense_reasons}")
+    if stats[True].csr_batches != stats[True].batches:
+        fail("CSR-direct run fell back to dense")
+    if len(rows[True]) != len(ids_all) or len(rows[False]) != len(ids_all):
+        fail("batcher returned the wrong number of windows")
+    for wa, wb_ in zip(rows[True], rows[False]):
+        for xa, xb in zip(wa, wb_):
+            if not np.array_equal(xa, xb):
+                fail(f"dense-fallback rows differ from the CSR rows "
+                     f"({dp_variant})")
+    return {"dp_variant": dp_variant, "n_windows": len(ids_all),
+            "dense_batches": st.batches, "dense_fill": st.fill,
+            "dense_reasons": st.dense_reasons,
+            "csr_batches": stats[True].batches}
 
 
 def main() -> int:
@@ -329,59 +549,74 @@ def main() -> int:
             rows[(r["name"], K, B, W)] = r
 
     # phase 3: the main path
-    from nextpolish2_tpu_torch.pipeline import engine
-    from nextpolish2_tpu_torch.utils import timing
+    paths = Paths()
+    dp_all = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk")
+    paths.run(
+        "main_path_ecoli", ("consensus_dp_v2", "backtrack_packed"),
+        ("consensus_dp_base", "consensus_dp_dynk"),
+        lambda: polish_check("ecoli.fa", "ecoli.bam", ["ecoli.k21.yak"],
+                             "ecoli.truth.fa", "cuda"))
+    if not native.available():
+        fail("native host library not loaded on the main path")
 
-    cc.reset_counts()
-    engine.STATS.clear()
-    timing.reset()
-    timing.enable()
-    cc.time_launches(True)
-    res = polish_check("ecoli.fa", "ecoli.bam", ["ecoli.k21.yak"],
-                       "ecoli.truth.fa", "cuda")
-    cc.time_launches(False)
-    timing.enable(False)
-    launches = dict(cc.LAUNCHES)
-    shape_launches = dict(cc.SHAPE_LAUNCHES)
-    kernel_ms = cc.launch_ms()
-    for name in ("consensus_dp_v2", "backtrack_packed"):
-        if launches.get(name, 0) == 0:
-            fail(f"{name} was not launched on the main path")
-    for name in ("consensus_dp_plain", "backtrack_plain"):
-        if launches.get(name, 0) != 0:
-            fail(f"plain twin {name} ran on the main path")
-    res.update({"windows": engine.STATS["windows"],
-                "chunks": engine.STATS["chunks"],
-                "host_fallback_windows": engine.STATS["host_fallback_windows"],
-                "oracle_fallback_contigs":
-                    engine.STATS["oracle_fallback_contigs"],
-                "native_loaded": native.available()})
-    print(json.dumps({"phase": "main_path_ecoli", **res}))
-    stages = timing.snapshot()
-    print(json.dumps({"phase": "stages_ecoli_s",
-                      **{k: stages[k] for k in sorted(stages,
-                                                      key=lambda k: -stages[k])}}))
-    print(json.dumps({"phase": "kernels_main_path", "launches": launches,
-                      "total_ms": kernel_ms,
-                      "by_shape": {f"{n}@K{k}xB{b}xW{w}": c for (n, k, b, w), c
-                                   in sorted(shape_launches.items())}}))
-    timing.reset()
+    # phase 4: the slice with two k-mer tables
+    paths.run(
+        "slice", ("consensus_dp_v2", "backtrack_packed"),
+        ("consensus_dp_base", "consensus_dp_dynk"),
+        lambda: polish_check("slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
+                             "slice.golden.fa", "cuda"))
 
-    # any other shape the main path launched gets measured too
-    for (name, K, B, W) in sorted(shape_launches):
+    # phase 5: the other two DP formulations on their routes
+    paths.run(
+        "ecoli_dynk_dense_route", ("consensus_dp_dynk", "backtrack_packed"),
+        ("consensus_dp_v2", "consensus_dp_base"),
+        lambda: polish_check("ecoli.fa", "ecoli.bam", ["ecoli.k21.yak"],
+                             "ecoli.truth.fa", "cuda", dp_variant="dynk"))
+    paths.run(
+        "slice_base_blob_route", ("consensus_dp_base", "backtrack_packed"),
+        ("consensus_dp_v2", "consensus_dp_dynk"),
+        lambda: polish_check("slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
+                             "slice.golden.fa", "cuda", dp_variant="base"))
+
+    # phase 6: 20 contigs through the cross-contig batcher, then one by one
+    for threads in (8, 1):
+        res = paths.run(
+            f"m20_t{threads}", ("consensus_dp_v2", "backtrack_packed"),
+            ("consensus_dp_base", "consensus_dp_dynk"),
+            lambda: polish_check("m20.fa", "m20.bam", ["m20.k21.yak"],
+                                 "m20.truth.fa", "cuda", threads=threads))
+        if res["contigs"] != 20:
+            fail(f"m20: {res['contigs']} contigs polished, expected 20")
+        if threads > 1 and (res["batches"] == 0
+                            or res["csr_batches"] != res["batches"]):
+            fail(f"m20 -t {threads}: {res['csr_batches']}/{res['batches']} "
+                 "batches were CSR-direct")
+
+    # phase 7: the batcher's dense fallback on the card
+    paths.run(
+        "batcher_dense_fallback_v2", ("consensus_dp_v2", "backtrack_packed"),
+        ("consensus_dp_base", "consensus_dp_dynk"),
+        lambda: dense_fallback_check(sources[0], dev, "v2", 640), keep=False)
+    paths.run(
+        "batcher_dense_fallback_dynk",
+        ("consensus_dp_v2", "consensus_dp_dynk", "backtrack_packed"),
+        ("consensus_dp_base",),
+        lambda: dense_fallback_check(sources[0], dev, "dynk", 640),
+        keep=False)
+
+    # any other shape a path launched gets measured too
+    for (name, K, B, W) in sorted(paths.shapes):
         if (name, K, B, W) not in rows:
             for r in measure_shape(sources, K, B, W, dev):
                 rows[(r["name"], K, B, W)] = r
+    # launches: per polish() path, and their sum
     for key, r in rows.items():
-        r["launches"] = shape_launches.get(key, 0)
-
-    # phase 4: the slice with two k-mer tables
-    cc.reset_counts()
-    res = polish_check("slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
-                       "slice.golden.fa", "cuda")
-    if cc.LAUNCHES.get("consensus_dp_v2", 0) == 0:
-        fail("slice run did not launch the DP kernel")
-    print(json.dumps({"phase": "slice", **res}))
+        r["launches_by_path"] = {phase: by_shape[key] for phase, by_shape
+                                 in paths.by_path.items() if key in by_shape}
+        r["launches"] = sum(r["launches_by_path"].values())
+    for name in dp_all + ("backtrack_packed",):
+        if not any(r["launches"] for k, r in rows.items() if k[0] == name):
+            fail(f"{name} was launched on no path")
 
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
     print(card)

@@ -3,7 +3,11 @@
     nextpolish2 [-o FILE] [options] HiFi.map.bam genome.fa[.gz] short.read.yak...
 
 All reference flags are supported plus engine knobs (--engine, --device,
---window-len). Run as `python -m nextpolish2_tpu_torch.cli ...`.
+--window-len). -t N polishes N contigs at a time through one cross-contig
+device batcher. The engine's DP formulation follows the environment, as in
+the JAX package: NP2_DP_DYNK=1 (dynamic-K kernel on dense tables) or
+NP2_DP_BASE=1 (base formulation); the output is the same.
+Run as `python -m nextpolish2_tpu_torch.cli ...`.
 """
 
 from __future__ import annotations
@@ -128,12 +132,6 @@ def main(argv=None) -> int:
         return 2
     cfg = args_to_config(args)
 
-    if args.thread > 1:
-        print("nextpolish2: -t > 1 needs the cross-contig batcher, which is "
-              "not ported yet (ROADMAP Queue 1: pipeline/batcher.py)",
-              file=sys.stderr)
-        return 2
-
     if args.engine == "cuda":
         from .utils.torchcfg import resolve_device
 
@@ -178,6 +176,10 @@ def main(argv=None) -> int:
     print(f"Contigs: {stats.contigs} ({stats.polished} polished, "
           f"{stats.passthrough} passthrough); bases {stats.in_bases} -> "
           f"{stats.out_bases}", file=sys.stderr)
+    if stats.batches:
+        print(f"Device batches: {stats.batches} (fill "
+              f"{stats.batch_fill:.0%}, {stats.csr_batches} CSR-direct)",
+              file=sys.stderr)
     return 0
 
 

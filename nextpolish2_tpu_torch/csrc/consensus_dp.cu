@@ -28,23 +28,11 @@
 // is latency-bound on the per-thread sequential column chain. A
 // warp-per-window or slot-parallel mapping is later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dp_common.cuh"
 
 namespace {
 
-constexpr int kNegInf = -(1 << 30);
-constexpr int kNeg1 = kNegInf - 1;
-constexpr int kHeadQ = 15;
-constexpr int kMaxK = 64;
-
-__device__ __forceinline__ int pack_bkey(int t, int d, int q) {
-  return (int)(((unsigned)t << 18) | ((unsigned)d << 4) | (unsigned)q);
-}
-
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
+using namespace np2t;
 
 template <int KT>
 __global__ void __launch_bounds__(128)

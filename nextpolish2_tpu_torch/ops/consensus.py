@@ -1,12 +1,14 @@
 """The per-chunk device program in PyTorch: blob parse, CSR assembly, DP and
 backtrack dispatch, output pack.
 
-Counterpart of nextpolish2_tpu/ops/consensus.py::dp_backtrack_csr_blob. One
-uint8 blob (layout: pipeline.windows.pack_csr_blob) goes in; one u16
+Counterpart of nextpolish2_tpu/ops/consensus.py::dp_backtrack_csr_blob (one
+uint8 blob in; layout: pipeline.windows.pack_csr_blob) and of its dense-table
+dispatch dp_backtrack_packed (SlotTables in). Either way one u16
 [B, max_steps + 8] array comes out (pack_backtrack_out), bit-identical to the
-JAX program. The DP and the backtrack run as hand-written CUDA kernels on a
-CUDA device and as their plain PyTorch twins on the CPU
-(ops/consensus_cuda.py); everything else here is plain tensor code.
+JAX program. The DP, in the formulation the caller names (DP_VARIANTS), and
+the backtrack run as hand-written CUDA kernels on a CUDA device and as their
+plain PyTorch twins on the CPU (ops/consensus_cuda.py); everything else here
+is plain tensor code.
 
 Integer discipline: PyTorch on the CPU has no shift, compare or add for
 uint32 and widens cumsum to int64, so the fused1 u32 entry word and the
@@ -16,11 +18,24 @@ bit patterns (view them as uint16 on the host).
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
 NEG_INF = -(1 << 30)
 HEAD_Q = 15
+# DP formulations: "v2" the span-bounded running pick (the default), "base"
+# the per-slot _pick reduction, "dynk" the same reduction with each column's
+# slot loop bounded by n_slots (dense tables only)
+DP_VARIANTS = ("v2", "base", "dynk")
+
+
+class SlotTables(NamedTuple):
+    key: torch.Tensor                # int32 [B, W, K] packed kmer key (-1 = empty)
+    count: torch.Tensor              # int32 [B, W, K]
+    coverage: torch.Tensor           # int32 [B, W]
+    n_slots: Optional[torch.Tensor]  # int32 [B, W]; None where only "v2"/"base" run
 
 
 def decode_keys(key: torch.Tensor, col: torch.Tensor):
@@ -264,17 +279,61 @@ def blob_tables(blob, *, B: int, W: int, K: int, P: int, Pd: int, Pe: int,
     return key, cnt, cov, lead, seed.to(torch.uint8), last_col
 
 
-def dp_backtrack_csr_blob(blob, *, B: int, W: int, K: int, P: int, Pd: int,
-                          Pe: int, max_steps: int, device=None) -> torch.Tensor:
-    """The chunk program: blob (uint8 tensor or numpy array) -> int16
-    [B, max_steps + 8] (u16 bits of the JAX output). On a CUDA device the DP
-    and the backtrack are the hand-written kernels; on the CPU their plain
-    twins."""
-    from .consensus_cuda import backtrack_packed, consensus_dp_v2
+def dp_backtrack(tables: SlotTables, lead, seed_u8, last_col, max_steps: int,
+                 dp_variant: str) -> torch.Tensor:
+    """DP in the named formulation + backtrack + output pack on slot tables:
+    lead/last_col int32 [B], seed_u8 uint8 [B] -> int16 [B, max_steps + 8].
+    "v2" is bounded by each window's span (last_col + 1); "base" and "dynk"
+    scan all W columns; "dynk" reads tables.n_slots."""
+    from .consensus_cuda import (backtrack_packed, consensus_dp_base,
+                                 consensus_dp_dynk, consensus_dp_v2)
 
-    key, cnt, cov, lead, seed_u8, last_col = blob_tables(
-        blob, B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, device=device)
-    scores, besti = consensus_dp_v2(key, cnt, cov, lead, seed_u8,
-                                    last_col + 1)
+    key, cnt, cov = tables.key, tables.count, tables.coverage
+    if dp_variant == "v2":
+        scores, besti = consensus_dp_v2(key, cnt, cov, lead, seed_u8,
+                                        last_col + 1)
+    elif dp_variant == "base":
+        scores, besti = consensus_dp_base(key, cnt, cov, lead, seed_u8)
+    elif dp_variant == "dynk":
+        if tables.n_slots is None:
+            raise ValueError("dp_variant 'dynk' needs the n_slots table")
+        scores, besti = consensus_dp_dynk(key, cnt, cov, tables.n_slots,
+                                          lead, seed_u8)
+    else:
+        raise ValueError(f"unknown dp_variant {dp_variant!r} "
+                         f"(expected one of {DP_VARIANTS})")
     return backtrack_packed(key, cnt, cov, scores, besti, last_col, seed_u8,
                             max_steps)
+
+
+def dp_backtrack_packed(tables: SlotTables, lead, seed, last_col,
+                        max_steps: int, dp_variant: str) -> torch.Tensor:
+    """The dense-table dispatch: slot tables and per-window scalars in any
+    integer/bool dtype, all on one device -> int16 [B, max_steps + 8] (u16
+    bits of the JAX dp_backtrack_packed output)."""
+    i32 = torch.int32
+    tables = SlotTables(
+        key=tables.key.to(i32).contiguous(),
+        count=tables.count.to(i32).contiguous(),
+        coverage=tables.coverage.to(i32).contiguous(),
+        n_slots=(None if tables.n_slots is None
+                 else tables.n_slots.to(i32).contiguous()))
+    return dp_backtrack(tables, lead.to(i32), seed.to(torch.uint8),
+                        last_col.to(i32), max_steps, dp_variant)
+
+
+def dp_backtrack_csr_blob(blob, *, B: int, W: int, K: int, P: int, Pd: int,
+                          Pe: int, max_steps: int, device=None,
+                          dp_variant: str = "v2") -> torch.Tensor:
+    """The chunk program: blob (uint8 tensor or numpy array) -> int16
+    [B, max_steps + 8] (u16 bits of the JAX output). dp_variant is "v2" or
+    "base"; the blob carries no n_slots table, so "dynk" is an error. On a
+    CUDA device the DP and the backtrack are the hand-written kernels; on
+    the CPU their plain twins."""
+    if dp_variant not in ("v2", "base"):
+        raise ValueError(f"dp_variant {dp_variant!r} cannot run on the CSR "
+                         "blob (expected 'v2' or 'base')")
+    key, cnt, cov, lead, seed_u8, last_col = blob_tables(
+        blob, B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, device=device)
+    return dp_backtrack(SlotTables(key, cnt, cov, None), lead, seed_u8,
+                        last_col, max_steps, dp_variant)

@@ -4,6 +4,10 @@ plain PyTorch twins.
 consensus_dp_v2 replaces the Pallas kernel
 nextpolish2_tpu/ops/consensus_pallas.py::_dp_kernel_v2 (span-bounded,
 launched at consensus_dp_pallas), source csrc/consensus_dp.cu.
+consensus_dp_base replaces _dp_kernel (the reference formulation, a _pick
+reduction per slot), source csrc/consensus_dp_base.cu; consensus_dp_dynk
+replaces _dp_kernel_dynk (the same reduction with the slot loop bounded by
+n_slots), source csrc/consensus_dp_dynk.cu. Neither has a span bound.
 backtrack_packed replaces the XLA scan
 nextpolish2_tpu/ops/consensus.py::_backtrack_scan_packed (with
 _backtrack_state_tables, _backtrack_start and pack_backtrack_out), source
@@ -18,7 +22,8 @@ seconds.
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. It never falls back. Every launch
 adds one to LAUNCHES[name] (and SHAPE_LAUNCHES[(name, K, B, W)]), so a run
-can prove which path it took.
+can prove which path it took. The counters are shared by every thread of the
+process and are updated under one lock.
 """
 
 from __future__ import annotations
@@ -40,7 +45,15 @@ from .consensus import (HEAD_Q, NEG_INF, backtrack_start,
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = {"consensus_dp": "consensus_dp.cu", "backtrack": "backtrack.cu"}
+SOURCES = {"consensus_dp": "consensus_dp.cu",
+           "consensus_dp_base": "consensus_dp_base.cu",
+           "consensus_dp_dynk": "consensus_dp_dynk.cu",
+           "backtrack": "backtrack.cu"}
+HEADERS = ("dp_common.cuh",)  # a change to one rebuilds every source
+# C entry point np2t_<name>: (pointer arguments, int arguments) before the
+# stream pointer
+_ARGS = {"consensus_dp": (8, 3), "consensus_dp_base": (7, 3),
+         "consensus_dp_dynk": (8, 3), "backtrack": (8, 4)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 K_MAX = 64  # the runtime-K kernel path's slot bound (uint64 slot masks)
@@ -50,16 +63,27 @@ SHAPE_LAUNCHES: dict = collections.Counter()
 BUILD_INFO: dict = {}  # name -> {"seconds", "log"} of this process's builds
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = threading.Lock()        # builds and library loads
+_count_lock = threading.Lock()  # LAUNCHES, SHAPE_LAUNCHES, _launch_events
 # (name, start event, end event) per kernel launch while timing is on
 _launch_events: list = []
 _timing = False
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
-    SHAPE_LAUNCHES.clear()
-    _launch_events.clear()
+    with _count_lock:
+        LAUNCHES.clear()
+        SHAPE_LAUNCHES.clear()
+        _launch_events.clear()
+
+
+def _count(name: str, shape=None, events=None) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if shape is not None:
+            SHAPE_LAUNCHES[(name, *shape)] += 1
+        if events is not None:
+            _launch_events.append((name, *events))
 
 
 def time_launches(flag: bool = True) -> None:
@@ -72,7 +96,9 @@ def time_launches(flag: bool = True) -> None:
 def launch_ms() -> dict:
     """Kernel name -> total device milliseconds of its timed launches."""
     out: dict = collections.Counter()
-    for name, e0, e1 in _launch_events:
+    with _count_lock:
+        events = list(_launch_events)
+    for name, e0, e1 in events:
         e1.synchronize()
         out[name] += e0.elapsed_time(e1)
     return dict(out)
@@ -88,11 +114,11 @@ def _launch(name: str, K: int, B: int, W: int, fn, *args) -> None:
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    events = None
     if _timing:
         e1.record()
-        _launch_events.append((name, e0, e1))
-    LAUNCHES[name] += 1
-    SHAPE_LAUNCHES[(name, K, B, W)] += 1
+        events = (e0, e1)
+    _count(name, (K, B, W), events)
 
 
 def _nvcc() -> str:
@@ -111,10 +137,10 @@ def _so_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
-    so = _so_path(name)
     try:
-        return (os.path.getmtime(os.path.join(CSRC, SOURCES[name]))
-                > os.path.getmtime(so))
+        built = os.path.getmtime(_so_path(name))
+        return any(os.path.getmtime(os.path.join(CSRC, f)) > built
+                   for f in (SOURCES[name], *HEADERS))
     except OSError:
         return True
 
@@ -161,12 +187,9 @@ def _lib(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_so_path(name))
             fn = getattr(lib, f"np2t_{name}")
             fn.restype = ctypes.c_int
-            if name == "consensus_dp":
-                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
-                    + [ctypes.c_void_p]
-            else:
-                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
-                    + [ctypes.c_void_p]
+            n_ptr, n_int = _ARGS[name]
+            fn.argtypes = [ctypes.c_void_p] * n_ptr \
+                + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             _libs[name] = lib
     return lib
 
@@ -186,6 +209,28 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 # consensus DP
 
 
+def _check_dp(name: str, key, cnt, cov, lead, seed):
+    """Shared argument checks of the DP wrappers (CUDA tensors only).
+    Returns (B, W, K, device)."""
+    if key.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {key.device}")
+    B, W, K = key.shape
+    if not 1 <= K <= K_MAX:
+        raise ValueError(f"{name}: K={K} outside 1..{K_MAX}")
+    dev = key.device
+    _check(key, "key", torch.int32, (B, W, K), dev)
+    _check(cnt, "cnt", torch.int32, (B, W, K), dev)
+    _check(cov, "cov", torch.int32, (B, W), dev)
+    _check(lead, "lead", torch.int32, (B,), dev)
+    _check(seed, "seed", torch.uint8, (B,), dev)
+    return B, W, K, dev
+
+
+def _dp_outputs(B: int, W: int, K: int, dev):
+    return (torch.empty((B, W, K), dtype=torch.int32, device=dev),
+            torch.empty((B, W, K), dtype=torch.int8, device=dev))
+
+
 def consensus_dp_v2(key, cnt, cov, lead, seed, span):
     """Windowed Viterbi DP: key/cnt int32 [B, W, K], cov int32 [B, W],
     lead/span int32 [B], seed uint8 [B] -> (scores int32 [B, W, K], besti
@@ -193,20 +238,9 @@ def consensus_dp_v2(key, cnt, cov, lead, seed, span):
     CPU tensors: the plain twin; CUDA tensors: the kernel."""
     if key.device.type == "cpu":
         return consensus_dp_plain(key, cnt, cov, lead, seed, span)
-    if key.device.type != "cuda":
-        raise ValueError(f"consensus_dp_v2: unsupported device {key.device}")
-    B, W, K = key.shape
-    if not 1 <= K <= K_MAX:
-        raise ValueError(f"consensus_dp_v2: K={K} outside 1..{K_MAX}")
-    dev = key.device
-    _check(key, "key", torch.int32, (B, W, K), dev)
-    _check(cnt, "cnt", torch.int32, (B, W, K), dev)
-    _check(cov, "cov", torch.int32, (B, W), dev)
-    _check(lead, "lead", torch.int32, (B,), dev)
-    _check(seed, "seed", torch.uint8, (B,), dev)
+    B, W, K, dev = _check_dp("consensus_dp_v2", key, cnt, cov, lead, seed)
     _check(span, "span", torch.int32, (B,), dev)
-    scores = torch.empty((B, W, K), dtype=torch.int32, device=dev)
-    besti = torch.empty((B, W, K), dtype=torch.int8, device=dev)
+    scores, besti = _dp_outputs(B, W, K, dev)
     fn = _lib("consensus_dp").np2t_consensus_dp
     with torch.cuda.device(dev):
         _launch("consensus_dp_v2", K, B, W, fn, key.data_ptr(),
@@ -246,7 +280,7 @@ def consensus_dp_plain(key, cnt, cov, lead, seed, span):
     column's actual max level, so no level cap applies; invalid same-column
     slots get their (never followed) besti from a final pass, as the kernel's
     in-order pick gives them."""
-    LAUNCHES["consensus_dp_plain"] += 1
+    _count("consensus_dp_plain")
     B, W, K = key.shape
     dev = key.device
     i32 = torch.int32
@@ -316,6 +350,171 @@ def consensus_dp_plain(key, cnt, cov, lead, seed, span):
 
 
 # --------------------------------------------------------------------------
+# consensus DP, base and dynamic-K formulations (the _pick reduction)
+
+
+def consensus_dp_base(key, cnt, cov, lead, seed):
+    """The DP in its base formulation (Pallas _dp_kernel): per slot a _pick
+    reduction over the predecessor pool, all W columns, no span bound. Same
+    arguments and outputs as consensus_dp_v2 without span. CPU tensors: the
+    plain twin; CUDA tensors: the kernel."""
+    if key.device.type == "cpu":
+        return consensus_dp_base_plain(key, cnt, cov, lead, seed)
+    B, W, K, dev = _check_dp("consensus_dp_base", key, cnt, cov, lead, seed)
+    scores, besti = _dp_outputs(B, W, K, dev)
+    fn = _lib("consensus_dp_base").np2t_consensus_dp_base
+    with torch.cuda.device(dev):
+        _launch("consensus_dp_base", K, B, W, fn, key.data_ptr(),
+                cnt.data_ptr(), cov.data_ptr(), lead.data_ptr(),
+                seed.data_ptr(), scores.data_ptr(), besti.data_ptr(),
+                B, W, K, torch.cuda.current_stream(dev).cuda_stream)
+    return scores, besti
+
+
+def consensus_dp_dynk(key, cnt, cov, n_slots, lead, seed):
+    """The DP in its dynamic-K formulation (Pallas _dp_kernel_dynk): the
+    base formulation with each column's slot loop bounded by the window's
+    own n_slots[b, c] (int32 [B, W]); slots from the bound on keep NEG_INF /
+    0. n_slots is taken as given. CPU tensors: the plain twin; CUDA
+    tensors: the kernel."""
+    if key.device.type == "cpu":
+        return consensus_dp_dynk_plain(key, cnt, cov, n_slots, lead, seed)
+    B, W, K, dev = _check_dp("consensus_dp_dynk", key, cnt, cov, lead, seed)
+    _check(n_slots, "n_slots", torch.int32, (B, W), dev)
+    scores, besti = _dp_outputs(B, W, K, dev)
+    fn = _lib("consensus_dp_dynk").np2t_consensus_dp_dynk
+    with torch.cuda.device(dev):
+        _launch("consensus_dp_dynk", K, B, W, fn, key.data_ptr(),
+                cnt.data_ptr(), cov.data_ptr(), n_slots.data_ptr(),
+                lead.data_ptr(), seed.data_ptr(), scores.data_ptr(),
+                besti.data_ptr(), B, W, K,
+                torch.cuda.current_stream(dev).cuda_stream)
+    return scores, besti
+
+
+def _pick_reduce(m, s_j, nongap_j):
+    """The _pick reduction of consensus_pallas.py (:53-66) over the last
+    axis (the predecessor rows j): rows that do not match enter the max as
+    NEG_INF-1; ismax = m & (score == max); the pick is the LAST max whose
+    predecessor is a non-gap, else the FIRST max; has = any(ismax), NOT
+    any(m): a pool whose matching scores all lie below NEG_INF-1 reports
+    has = False. Returns (max, j, has) over the leading axes."""
+    K = m.shape[-1]
+    cand = torch.where(m, s_j, NEG_INF - 1)
+    maxv = cand.amax(-1)
+    ismax = m & (cand == maxv[..., None])
+    jidx = torch.arange(K, device=m.device)
+    jfirst = torch.where(ismax, jidx, K).amin(-1)
+    jlastn = torch.where(ismax & nongap_j, jidx, -1).amax(-1)
+    has = ismax.any(-1)
+    j = torch.where(jlastn >= 0, jlastn, jfirst)
+    return maxv, torch.where(has, j, 0), has
+
+
+def _dp_reduce_columns(key, cnt, cov, lead, seed, n_slots):
+    """The column scan shared by the base and dynamic-K twins, vectorized
+    over windows, one Python step per column. Slot i reduces the previous
+    column's pool, or with the same-column flag the pool of ALL slots of
+    this column at their scores as of step i (final before i, NEG_INF from
+    i on). The previous-column picks do not depend on the step and are
+    taken for every slot at once; the same-column picks run in slot order
+    over the slots some window needs; invalid same-column slots, whose
+    scores stay NEG_INF whatever they pick, take their besti from one last
+    pass. n_slots (dynamic-K) bounds the computed slots of each column:
+    slots from the bound on keep NEG_INF / 0. A column whose keys are all
+    the empty-slot key -1 only hands on its carry: a key of -1 has the
+    same-column flag and a query (q1 = 15) that no target of -7 can equal,
+    so every pick there is empty."""
+    B, W, K = key.shape
+    dev = key.device
+    i32 = torch.int32
+    col = torch.arange(W, dtype=i32, device=dev).view(1, W, 1)
+    b1key, b2key, b3key, q1, q2, _q3, _b3d = decode_keys(key, col)
+    valid = key >= 0
+    b2m = torch.where(valid, b2key, -7)
+    b3m = torch.where(valid, b3key, -8)
+    b1head = q1 == HEAD_Q
+    b1nongap = q1 != 4
+    b2head = q2 == HEAD_Q
+    same = ((key >> 12) & 1) != 0
+    gains = 10 * cnt - 4 * cov[:, :, None]
+    cols = torch.arange(W, dtype=i32, device=dev)
+    colge3 = (lead.to(i32)[:, None] + cols[None, :]) >= 3          # [B, W]
+    seeded = seed.to(torch.bool)
+    jidx = torch.arange(K, device=dev)
+    if n_slots is None:
+        computed = torch.ones((B, W, K), dtype=torch.bool, device=dev)
+    else:
+        computed = jidx.view(1, 1, K) < n_slots.clamp(0, K)[:, :, None]
+    any_key = (key != -1).any(2).any(0).tolist() if B else [False] * W
+    live_all = same & valid & computed
+    live_slots = live_all.any(0)                                   # [W, K]
+
+    scores = torch.full((B, W, K), NEG_INF, dtype=i32, device=dev)
+    besti = torch.zeros((B, W, K), dtype=torch.int8, device=dev)
+    neg = torch.full((B, K), NEG_INF, dtype=i32, device=dev)
+
+    p_sc = neg
+    p_b2 = torch.full((B, K), -7, dtype=i32, device=dev)
+    p_b3 = torch.full((B, K), -8, dtype=i32, device=dev)
+    p_head = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    p_nongap = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    for c in range(W):
+        if not any_key[c]:
+            p_sc, p_b2, p_b3 = neg, b2m[:, c], b3m[:, c]
+            p_head, p_nongap = b1head[:, c], b1nongap[:, c]
+            continue
+        g = colge3[:, c, None]
+        b1, b2 = b1key[:, c], b2key[:, c]
+        v_c, use_c, gain = valid[:, c], same[:, c], gains[:, c]
+        h2, comp, nongap_c = b2head[:, c], computed[:, c], b1nongap[:, c]
+
+        m = ((p_b2[:, None, :] == b1[:, :, None])
+             & (p_b3[:, None, :] == b2[:, :, None])
+             & ~(p_head & g)[:, None, :])
+        best, j, has = _pick_reduce(m, p_sc[:, None, :], p_nongap[:, None, :])
+        s = torch.where(h2, gain, torch.where(has, best + gain, neg))
+        take = ~use_c & comp
+        s = torch.where(take & v_c, s, neg)
+        bi = torch.where(take, j, 0)
+
+        mc = ((b2m[:, c][:, None, :] == b1[:, :, None])
+              & (b3m[:, c][:, None, :] == b2[:, :, None])
+              & ~(b1head[:, c] & g)[:, None, :])                   # [B, i, j]
+        for i in live_slots[c].nonzero()[:, 0].tolist():
+            pool = torch.where(jidx < i, s, neg)
+            best, j, has = _pick_reduce(mc[:, i], pool, nongap_c)
+            s_i = torch.where(h2[:, i], gain[:, i],
+                              torch.where(has, best + gain[:, i], neg[:, 0]))
+            sel = live_all[:, c, i]
+            s[:, i] = torch.where(sel, s_i, s[:, i])
+            bi[:, i] = torch.where(sel, j, bi[:, i])
+        pool = torch.where(jidx[None, :] < jidx[:, None], s[:, None, :],
+                           neg[:, None, :])                        # [B, i, j]
+        _best, j, _has = _pick_reduce(mc, pool, nongap_c[:, None, :])
+        bi = torch.where(use_c & ~v_c & comp, j, bi)
+
+        out = torch.where(seeded[:, None] & v_c & (c == 2), 0, s)
+        scores[:, c] = out
+        besti[:, c] = bi.to(torch.int8)
+        p_sc, p_b2, p_b3 = out, b2m[:, c], b3m[:, c]
+        p_head, p_nongap = b1head[:, c], nongap_c
+    return scores, besti
+
+
+def consensus_dp_base_plain(key, cnt, cov, lead, seed):
+    """Plain twin of the consensus_dp_base kernel."""
+    _count("consensus_dp_base_plain")
+    return _dp_reduce_columns(key, cnt, cov, lead, seed, None)
+
+
+def consensus_dp_dynk_plain(key, cnt, cov, n_slots, lead, seed):
+    """Plain twin of the consensus_dp_dynk kernel."""
+    _count("consensus_dp_dynk_plain")
+    return _dp_reduce_columns(key, cnt, cov, lead, seed, n_slots)
+
+
+# --------------------------------------------------------------------------
 # backtrack
 
 
@@ -353,7 +552,7 @@ def backtrack_plain(key, cnt, cov, scores, besti, last_col, seed,
                     max_steps: int):
     """Plain twin of the backtrack kernel: the packed state table, then one
     gather per step (the JAX _backtrack_scan_packed)."""
-    LAUNCHES["backtrack_plain"] += 1
+    _count("backtrack_plain")
     B, W, K = key.shape
     info = backtrack_state_tables(key, cnt, cov, besti, seed.to(torch.bool))
     s, best = backtrack_start(scores, last_col, K)

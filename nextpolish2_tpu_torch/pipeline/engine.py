@@ -10,6 +10,14 @@ window emissions into the exact global backtrack stream, runs the reference
 LQ state machine over it, then allele extraction, phasing and recheck
 (models/oracle_lq.py).
 
+The DP formulation is chosen once per call (resolve_dp_variants: an explicit
+dp_variant, else the NP2_DP_DYNK / NP2_DP_BASE environment variables) and
+handed down. Under "dynk" the engine aggregates dense [B, W, K] tables on the
+host and ships them whole (dispatch_chunk), since the dynamic-K kernel reads
+the n_slots table; otherwise chunks ride the CSR blob. With an active
+cross-contig batcher (pipeline/batcher.py, -t N) the windows go to it as
+aggregation closures instead of being dispatched here.
+
 Exactness: anchor-forced windowing makes the windowed DP equal to the
 reference's whole-contig DP (pipeline/windows.py); windows that overflow the
 device's static bounds (slots, path steps) re-run on the host, and a
@@ -21,7 +29,9 @@ byte-identical output).
 from __future__ import annotations
 
 import collections
-from typing import List, Optional, Sequence, Tuple
+import os
+import threading
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,21 +52,55 @@ from ..models.oracle_lq import (
     update_consensus_with_lqseqs,
 )
 from ..models.oracle_msa import Consensus, lq_from_qv_stream
-from ..ops.consensus import (decode_backtrack_words, dp_backtrack_csr_blob,
+from ..ops.consensus import (DP_VARIANTS, SlotTables, decode_backtrack_words,
+                             dp_backtrack_csr_blob, dp_backtrack_packed,
                              nibble_ns_for)
 from ..utils.seqcodes import ASCII2CODE, CODE2ASCII
 from ..utils.timing import stage
 from ..utils.torchcfg import bucket, resolve_device
 from .host_fallback import host_window_dp
-from .windows import (WindowOverflow, aggregate_csr_host, aggregate_host,
-                      build_window_batch, pack_csr_blob, split_csr)
+from .windows import (WindowOverflow, aggregate_csr_host, aggregate_csr_parts,
+                      aggregate_host, build_window_batch, pack_csr_blob,
+                      split_csr)
 
 K_SMALL = 8   # small DP-kernel slot tier
 CHUNK_B_TIERS = {K_SMALL: 512, 48: 128}
 PIPELINE_DEPTH = 3  # chunks in flight: host aggregation overlaps the device
 
-# process-wide engine counters (chip_smoke.py and tests read them)
+# process-wide engine counters (chip_smoke.py and tests read them); contig
+# threads update them under _stats_lock
 STATS: dict = collections.Counter()
+_stats_lock = threading.Lock()
+
+
+def _stat(name: str, n: int = 1) -> None:
+    with _stats_lock:
+        STATS[name] += n
+
+
+class DpVariants(NamedTuple):
+    """The DP formulation of each dispatch route."""
+    blob: str    # "v2" | "base": chunks that ride the CSR blob
+    dynk: bool   # dense-table chunks run the dynamic-K kernel, and the
+    #              per-contig engine aggregates dense tables to feed it
+
+
+def resolve_dp_variants(dp_variant=None) -> DpVariants:
+    """An explicit dp_variant ("v2", "base" or "dynk"; an already resolved
+    DpVariants passes through), else the environment: NP2_DP_DYNK selects
+    the dynamic-K kernel on the dense route and NP2_DP_BASE the base
+    formulation on the blob route."""
+    if isinstance(dp_variant, DpVariants):
+        return dp_variant
+    if dp_variant is None:
+        return DpVariants(
+            blob="base" if os.environ.get("NP2_DP_BASE") else "v2",
+            dynk=bool(os.environ.get("NP2_DP_DYNK")))
+    if dp_variant not in DP_VARIANTS:
+        raise ValueError(f"unknown dp_variant {dp_variant!r} "
+                         f"(expected one of {DP_VARIANTS})")
+    return DpVariants(blob="base" if dp_variant == "base" else "v2",
+                      dynk=dp_variant == "dynk")
 
 
 def chunk_b_tiers(fat_k: int) -> dict:
@@ -135,17 +179,38 @@ def window_anchors(wb) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return lead_all, seed_all, last_all
 
 
-def chunk_blob(wb, ids: np.ndarray, cwidth: int, ck: int, pad_b: int,
-               anchors: Tuple[np.ndarray, np.ndarray, np.ndarray]):
-    """Aggregate one chunk on the host and pack its upload blob; the
-    window_anchors rows of `ids` are padded to pad_b lanes. Returns
-    (blob u8, P, Pd, Pe, host overflow flags [pad_b], last_col [pad_b])."""
+def pad_anchors(anchors: Tuple[np.ndarray, np.ndarray, np.ndarray],
+                ids: np.ndarray, pad_b: int):
+    """The window_anchors rows of `ids`, padded to pad_b lanes:
+    (lead int64, seed bool, last_col int32)."""
     n = len(ids)
     lead = np.zeros(pad_b, dtype=np.int64)
     seed = np.zeros(pad_b, dtype=bool)
     last_col = np.zeros(pad_b, dtype=np.int32)
     for dst, src in zip((lead, seed, last_col), anchors):
         dst[:n] = src[ids]
+    return lead, seed, last_col
+
+
+def csr_blob(csr: tuple, lead: np.ndarray, seed: np.ndarray,
+             last_col: np.ndarray, ck: int):
+    """Pack a CSR chunk (ns_u8, keylo, clo, dgap, dval, eidx, xkey, xcnt)
+    and its per-window scalars into the upload blob. Returns (blob u8, P,
+    Pd, Pe)."""
+    ns_u8, keylo, clo, dgap, dval, eidx, xkey, xcnt = csr
+    B, W = ns_u8.shape
+    blob = pack_csr_blob(ns_u8, keylo, clo, dgap, dval, eidx, xkey, xcnt,
+                         lead, seed, last_col,
+                         nibble_ns=nibble_ns_for(B, W, ck))
+    return blob, len(keylo), len(dgap), len(eidx)
+
+
+def chunk_blob(wb, ids: np.ndarray, cwidth: int, ck: int, pad_b: int,
+               anchors: Tuple[np.ndarray, np.ndarray, np.ndarray]):
+    """Aggregate one chunk on the host and pack its upload blob; the
+    window_anchors rows of `ids` are padded to pad_b lanes. Returns
+    (blob u8, P, Pd, Pe, host overflow flags [pad_b], last_col [pad_b])."""
+    lead, seed, last_col = pad_anchors(anchors, ids, pad_b)
     with stage("aggregate_pileup"):
         csr = aggregate_csr_host(wb, ck, width=cwidth, n_windows=pad_b,
                                  win_idx=ids)
@@ -153,20 +218,20 @@ def chunk_blob(wb, ids: np.ndarray, cwidth: int, ck: int, pad_b: int,
             key_tab, cnt_tab, _cov, n_slots, overflow = aggregate_host(
                 wb, ck, width=cwidth, n_windows=pad_b, win_idx=ids)
             csr = split_csr(key_tab, cnt_tab, n_slots) + (overflow,)
-    ns_u8, keylo, clo, dgap, dval, eidx, xkey, xcnt, overflow = csr
-    blob = pack_csr_blob(ns_u8, keylo, clo, dgap, dval, eidx, xkey, xcnt,
-                         lead, seed, last_col,
-                         nibble_ns=nibble_ns_for(pad_b, cwidth, ck))
-    return blob, len(keylo), len(dgap), len(eidx), overflow, last_col
+    blob, P, Pd, Pe = csr_blob(csr[:-1], lead, seed, last_col, ck)
+    return blob, P, Pd, Pe, csr[-1], last_col
 
 
 class ChunkRunner:
-    """Runs chunk programs on one device. On CUDA each chunk's blob is
-    written into pinned host memory, copied on a side stream, and the
+    """Runs chunk programs on one device. On CUDA a chunk's host arrays are
+    written into ONE pinned buffer, copied on a side stream, and the
     compute stream waits on that copy's event; the packed result comes back
     into pinned memory with a completion event, so the host keeps
-    aggregating later chunks while the device works. On the CPU the program
-    runs inline."""
+    aggregating later chunks while the device works. Pinned buffers are
+    allocated per chunk: PyTorch's pinned-memory allocator caches freed
+    blocks and holds each back until the copy that used it is done. On the
+    CPU the program runs inline. Streams are per thread: the thread that
+    submits must also collect (result)."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -174,31 +239,74 @@ class ChunkRunner:
         if self.cuda:
             self.copy_stream = torch.cuda.Stream(device)
 
-    def submit(self, blob: np.ndarray, *, B: int, W: int, K: int, P: int,
-               Pd: int, Pe: int, max_steps: int):
-        if not self.cuda:
-            return dp_backtrack_csr_blob(torch.from_numpy(blob), B=B, W=W, K=K,
-                                         P=P, Pd=Pd, Pe=Pe,
-                                         max_steps=max_steps)
-        host = torch.empty(len(blob), dtype=torch.uint8, pin_memory=True)
-        host.numpy()[:] = blob
+    def _upload(self, arrays: Sequence[np.ndarray]):
+        """Host arrays (int32 first, then uint8) -> device tensors, through
+        one pinned buffer and one H2D copy."""
+        offs, total = [], 0
+        for a in arrays:
+            if a.dtype not in (np.int32, np.uint8) or total % a.itemsize:
+                raise ValueError("upload takes int32 arrays, then uint8")
+            offs.append(total)
+            total += a.nbytes
+        host = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        hview = host.numpy()
+        for a, o in zip(arrays, offs):
+            hview[o : o + a.nbytes] = np.ascontiguousarray(a).reshape(-1) \
+                .view(np.uint8)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.copy_stream):
-            dev_blob = host.to(self.device, non_blocking=True)
+            dev = host.to(self.device, non_blocking=True)
         copied = torch.cuda.Event()
         copied.record(self.copy_stream)
         compute.wait_event(copied)
-        dev_blob.record_stream(compute)
-        out = dp_backtrack_csr_blob(dev_blob, B=B, W=W, K=K, P=P, Pd=Pd,
-                                    Pe=Pe, max_steps=max_steps)
+        dev.record_stream(compute)
+        outs = []
+        for a, o in zip(arrays, offs):
+            t = dev[o : o + a.nbytes]
+            if a.dtype == np.int32:
+                t = t.view(torch.int32)
+            outs.append(t.reshape(a.shape))
+        return outs
+
+    def _download(self, out: torch.Tensor):
         res = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         res.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
-        done.record(compute)
+        done.record(torch.cuda.current_stream(self.device))
         return res, done
+
+    def submit(self, blob: np.ndarray, *, B: int, W: int, K: int, P: int,
+               Pd: int, Pe: int, max_steps: int, dp_variant: str = "v2"):
+        """Start the CSR-blob chunk program; returns a handle for result."""
+        kw = dict(B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, max_steps=max_steps,
+                  dp_variant=dp_variant)
+        if not self.cuda:
+            return dp_backtrack_csr_blob(torch.from_numpy(blob), **kw)
+        (dev_blob,) = self._upload([blob])
+        return self._download(dp_backtrack_csr_blob(dev_blob, **kw))
+
+    def submit_dense(self, key_tab: np.ndarray, cnt_tab: np.ndarray,
+                     coverage: np.ndarray, n_slots: np.ndarray,
+                     lead: np.ndarray, seed: np.ndarray, last_col: np.ndarray,
+                     *, max_steps: int, dp_variant: str):
+        """Start the dense-table chunk program (int32 [B, W, K] tables
+        shipped whole); returns a handle for result."""
+        arrays = [np.asarray(a, dtype=np.int32)
+                  for a in (key_tab, cnt_tab, coverage, n_slots, lead,
+                            last_col)]
+        arrays.append(np.asarray(seed, dtype=np.uint8))
+        if self.cuda:
+            tensors = self._upload(arrays)
+        else:
+            tensors = [torch.from_numpy(a) for a in arrays]
+        key, cnt, cov, ns, lead_t, last_t, seed_t = tensors
+        out = dp_backtrack_packed(SlotTables(key, cnt, cov, ns), lead_t,
+                                  seed_t, last_t, max_steps, dp_variant)
+        return self._download(out) if self.cuda else out
 
     @staticmethod
     def result(handle) -> np.ndarray:
+        """Wait for a submitted chunk; its packed output on the host."""
         if isinstance(handle, torch.Tensor):
             return handle.numpy()
         res, done = handle
@@ -206,9 +314,39 @@ class ChunkRunner:
         return res.numpy()
 
 
+def dispatch_chunk(runner: ChunkRunner, agg: tuple, lead: np.ndarray,
+                   seed: np.ndarray, last_col: np.ndarray, cwidth: int,
+                   ck: int, variants: DpVariants):
+    """One device dispatch for a chunk aggregated into dense tables, agg =
+    (key_tab, cnt_tab, coverage, n_slots, overflow): the engine's dynamic-K
+    route and the batcher's dense fallback go through here. Under dynamic-K
+    the tables ship whole (the kernel reads n_slots); otherwise they are
+    split into the CSR stream on the host and ride the blob, as every other
+    chunk does. Returns the runner's handle."""
+    key_tab, cnt_tab, coverage, n_slots, _overflow = agg
+    if variants.dynk:
+        return runner.submit_dense(key_tab, cnt_tab, coverage, n_slots, lead,
+                                   seed, last_col, max_steps=int(cwidth + 128),
+                                   dp_variant="dynk")
+    return dispatch_chunk_csr(runner, split_csr(key_tab, cnt_tab, n_slots),
+                              lead, seed, last_col, cwidth, ck, variants)
+
+
+def dispatch_chunk_csr(runner: ChunkRunner, csr: tuple, lead: np.ndarray,
+                       seed: np.ndarray, last_col: np.ndarray, cwidth: int,
+                       ck: int, variants: DpVariants):
+    """One device dispatch from an already-CSR chunk (ns_u8, keylo, clo,
+    dgap, dval, eidx, xkey, xcnt). Returns the runner's handle."""
+    blob, P, Pd, Pe = csr_blob(csr, lead, seed, last_col, ck)
+    B, W = csr[0].shape
+    return runner.submit(blob, B=B, W=W, K=ck, P=P, Pd=Pd, Pe=Pe,
+                         max_steps=int(cwidth + 128), dp_variant=variants.blob)
+
+
 def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
                             ref_codes: np.ndarray, cfg: PolishConfig,
-                            device: torch.device,
+                            runner: Optional[ChunkRunner],
+                            variants: DpVariants,
                             stream_cache: Optional[dict] = None,
                             final_iter: bool = False,
                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -216,7 +354,9 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
     (pos, base_ascii, qv, lowcov) arrays: the exact stream the reference
     walk produces (genome-descending), with count/coverage reduced to the
     two facts the LQ state machine reads (qv = count*100 // coverage and
-    coverage < 2; models.oracle_msa.lq_from_qv_stream)."""
+    coverage < 2; models.oracle_msa.lq_from_qv_stream). Chunks go through
+    `runner`, or through the active cross-contig batcher when there is one
+    (runner may then be None)."""
     with stage("plan_windows"):
         wb = build_window_batch(alignseqs, n_pos, ref_codes,
                                 target=cfg.window_len,
@@ -226,7 +366,7 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
         raise WindowOverflow("no windows")
     K = cfg.max_kmers_per_col
     nw = wb.n_windows
-    STATS["windows"] += nw
+    _stat("windows", nw)
 
     # Two width tiers; the tier is chosen PER CHUNK from that chunk's widest
     # window. Windows wider than tier 2 are flagged by the aggregation and
@@ -234,6 +374,9 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
     CHUNK_B = 16 if nw <= 16 else 128
     tiers = [bucket(cfg.window_len + 256, 128),
              bucket(2 * cfg.window_len + 512, 128)]
+
+    def tier_for(span: int) -> int:
+        return tiers[0] if span <= tiers[0] else tiers[1]
 
     anchors = window_anchors(wb)
     lead_all, seed_all, last_all = anchors
@@ -251,7 +394,7 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
     def run_host_fallback(w: int) -> None:
         # windows exceeding device static bounds re-run on the host with
         # identical semantics and no caps (host_fallback.py)
-        STATS["host_fallback_windows"] += 1
+        _stat("host_fallback_windows")
         with stage("host_fallback"):
             hcols, hkeys = wb.window_stream(w)
             hcol, hq3, hcnt, hcov, hbest = host_window_dp(
@@ -260,40 +403,93 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
         host_results[w] = (hcol, hq3, hcnt, hcov)
         best_all[w] = hbest
 
-    runner = ChunkRunner(device)
+    from .batcher import get_active_batcher
 
-    def harvest(pend) -> None:
-        ids, overflow, handle, last_col = pend
-        n = len(ids)
-        with stage("device_dp_backtrack"):
-            cols_r, packed_r, qv_r, best_sc, truncated, lvl_over = \
-                decode_backtrack_words(runner.result(handle), last_col)
-        best_all[ids] = best_sc[:n].astype(np.int64)
-        needs_host = overflow[:n] | lvl_over[:n] | truncated[:n]
-        for wl in range(n):
-            w = int(ids[wl])
-            win_rows[w] = (cols_r[wl], packed_r[wl], qv_r[wl])
-            if needs_host[wl]:
-                run_host_fallback(w)
+    batcher = get_active_batcher()
+    if batcher is not None:
+        # cross-contig batching: hand window subsets (aggregation deferred)
+        # to the shared DeviceBatcher, which packs full batches across the
+        # concurrently polished contigs per (width, K) tier
+        SUB = 32
+        futs = []
+        for c0 in range(0, nw, SUB):
+            c1 = min(c0 + SUB, nw)
+            swidth = tier_for(int(span_all[c0:c1].max()))
+            for kt in sorted(set(ktier_all[c0:c1].tolist())):
+                ids = c0 + np.nonzero(ktier_all[c0:c1] == kt)[0]
 
-    chunks = plan_tiered_chunks(span_all, ktier_all, tiers, CHUNK_B,
-                                tier_b=chunk_b_tiers(K) if CHUNK_B >= 128
-                                else None)
-    # software pipeline: aggregate + submit chunks ahead BEFORE pulling, so
-    # host pileup prep overlaps the device's DP of earlier chunks
-    pending = collections.deque()
-    for ids, cwidth, ck, pad_b in chunks:
-        blob, P, Pd, Pe, overflow, last_col = chunk_blob(
-            wb, ids, cwidth, ck, pad_b, anchors)
-        with stage("device_submit"):
-            handle = runner.submit(blob, B=pad_b, W=cwidth, K=ck, P=P, Pd=Pd,
-                                   Pe=Pe, max_steps=int(cwidth + 128))
-        STATS["chunks"] += 1
-        pending.append((ids, overflow, handle, last_col))
-        if len(pending) >= PIPELINE_DEPTH:
+                def agg(ids=ids, swidth=swidth, kt=kt):
+                    with stage("aggregate_pileup"):
+                        return aggregate_host(wb, kt, width=swidth,
+                                              n_windows=len(ids),
+                                              win_idx=ids)
+
+                def agg_csr(lo, hi, ids=ids, swidth=swidth, kt=kt):
+                    # CSR-direct range aggregation for the packed batch: no
+                    # dense [B, W, K] host tables
+                    with stage("aggregate_pileup"):
+                        return aggregate_csr_parts(wb, kt, width=swidth,
+                                                   n_windows=hi - lo,
+                                                   win_idx=ids[lo:hi])
+
+                futs.append((ids, batcher.submit(
+                    (swidth, kt), len(ids), agg, lead_all[ids],
+                    seed_all[ids], last_all[ids], aggregate_csr=agg_csr)))
+        for ids, fut in futs:
+            for i, (cols_r, packed_r, qv_r, best_sc, truncated,
+                    lvl_over, overflow) in enumerate(fut.result()):
+                w = int(ids[i])
+                win_rows[w] = (cols_r, packed_r, qv_r)
+                best_all[w] = best_sc
+                if overflow or lvl_over or truncated:
+                    run_host_fallback(w)
+    else:
+        def harvest(pend) -> None:
+            ids, overflow, handle, last_col = pend
+            n = len(ids)
+            with stage("device_dp_backtrack"):
+                cols_r, packed_r, qv_r, best_sc, truncated, lvl_over = \
+                    decode_backtrack_words(runner.result(handle), last_col)
+            best_all[ids] = best_sc[:n].astype(np.int64)
+            needs_host = overflow[:n] | lvl_over[:n] | truncated[:n]
+            for wl in range(n):
+                w = int(ids[wl])
+                win_rows[w] = (cols_r[wl], packed_r[wl], qv_r[wl])
+                if needs_host[wl]:
+                    run_host_fallback(w)
+
+        chunks = plan_tiered_chunks(span_all, ktier_all, tiers, CHUNK_B,
+                                    tier_b=chunk_b_tiers(K) if CHUNK_B >= 128
+                                    else None)
+        # software pipeline: aggregate + submit chunks ahead BEFORE pulling,
+        # so host pileup prep overlaps the device's DP of earlier chunks
+        pending = collections.deque()
+        for ids, cwidth, ck, pad_b in chunks:
+            if variants.dynk:
+                # the dynamic-K kernel reads the n_slots table: aggregate
+                # dense [B, W, K] tables and ship them whole
+                lead, seed, last_col = pad_anchors(anchors, ids, pad_b)
+                with stage("aggregate_pileup"):
+                    agg = aggregate_host(wb, ck, width=cwidth,
+                                         n_windows=pad_b, win_idx=ids)
+                overflow = agg[4]
+                with stage("device_submit"):
+                    handle = dispatch_chunk(runner, agg, lead, seed, last_col,
+                                            cwidth, ck, variants)
+            else:
+                blob, P, Pd, Pe, overflow, last_col = chunk_blob(
+                    wb, ids, cwidth, ck, pad_b, anchors)
+                with stage("device_submit"):
+                    handle = runner.submit(blob, B=pad_b, W=cwidth, K=ck, P=P,
+                                           Pd=Pd, Pe=Pe,
+                                           max_steps=int(cwidth + 128),
+                                           dp_variant=variants.blob)
+            _stat("chunks")
+            pending.append((ids, overflow, handle, last_col))
+            if len(pending) >= PIPELINE_DEPTH:
+                harvest(pending.popleft())
+        while pending:
             harvest(pending.popleft())
-    while pending:
-        harvest(pending.popleft())
 
     # whole-contig default-kmer check (main.rs:1651): window-local maxima are
     # partial sums from each anchor, so their sum is the true global best
@@ -337,19 +533,27 @@ def polish_contig_cuda(tseq: bytes, records: Sequence[BamRecord],
                        cfg: Optional[PolishConfig] = None, *,
                        device=None, native: Optional[tuple] = None,
                        fallback: bool = True,
-                       pre_ingest=None) -> Consensus:
+                       pre_ingest=None, dp_variant=None) -> Consensus:
     """Per-contig polish on the device engine; output matches
     models.oracle.polish_contig.
 
     device: "cuda" (default) or "cpu"; raises when CUDA is wanted and
-    absent. native: optional (bam_path, tid) to ingest via the C++ fast path
-    (io/_native) instead of the `records` list. pre_ingest: optional Future
+    absent. dp_variant: the DP formulation, "v2", "base" or "dynk" (None:
+    resolve_dp_variants reads the environment once, here; a DpVariants is
+    taken as resolved); the output is the same under each. With an active
+    cross-contig batcher every chunk goes through it. native: optional
+    (bam_path, tid) to ingest via the C++ fast path (io/_native) instead of
+    the `records` list. pre_ingest: optional Future
     (or plain tuple) carrying an already-run build_alignseqs_native_flat
     result for this contig (the orchestrator's one-contig lookahead)."""
     dev = resolve_device(device)
+    variants = resolve_dp_variants(dp_variant)
     cfg = cfg or PolishConfig()
     if len(tseq) < cfg.min_ctg_len:
         return passthrough_consensus(tseq)
+    from .batcher import get_active_batcher
+
+    runner = None if get_active_batcher() is not None else ChunkRunner(dev)
     tables = sorted(tables, key=lambda t: t.ksize)
     ref_codes = ASCII2CODE[np.frombuffer(tseq, dtype=np.uint8)]
     alignseqs = None
@@ -380,8 +584,8 @@ def polish_contig_cuda(tseq: bytes, records: Sequence[BamRecord],
         for i in range(cfg.iter_count):
             out_cns = i + 1 == cfg.iter_count
             pos, base, qv, lowcov = device_consensus_stream(
-                alignseqs, len(tseq), ref_codes, cfg, dev, stream_cache,
-                final_iter=out_cns)
+                alignseqs, len(tseq), ref_codes, cfg, runner, variants,
+                stream_cache, final_iter=out_cns)
             with stage("lq_detect"):
                 cb, lqseqs = lq_from_qv_stream(pos, base, qv, lowcov,
                                                cfg.hq_min_qv,
@@ -417,7 +621,7 @@ def polish_contig_cuda(tseq: bytes, records: Sequence[BamRecord],
             raise
         from ..models.oracle import polish_contig
 
-        STATS["oracle_fallback_contigs"] += 1
+        _stat("oracle_fallback_contigs")
         # restart from the pre-phasing state (native mode has no records
         # list, so the prebuilt alignseqs are handed to the oracle directly)
         for a, d in zip(alignseqs, saved_drops):

@@ -4,15 +4,17 @@ Replaces the reference's thread pipeline (input thread / N workers / output
 thread over bounded channels, main.rs:1689-1856). The sorted BAM is streamed
 sequentially and grouped per contig, each contig runs through the CUDA engine
 (windows are the intra-contig parallel unit: the device batch), and output is
-written in INPUT ORDER. Only -t 1 is ported: the cross-contig batcher that
-serves -t N is ROADMAP work.
+written in INPUT ORDER. At -t 1 contigs run one after another with a
+one-contig ingest lookahead; at -t N a pool of N contig threads shares one
+cross-contig DeviceBatcher (pipeline/batcher.py), whose worker thread owns
+the device.
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from ..config import PolishConfig
@@ -39,6 +41,13 @@ class PolishStats:
     in_bases: int = 0
     out_bases: int = 0
     seconds: float = 0.0
+    # cross-contig batcher (threads > 1): dispatched DP batches, their mean
+    # lane fill, how many were aggregated CSR-direct, and reason -> count
+    # for those that fell back to dense host tables
+    batches: int = 0
+    batch_fill: float = 0.0
+    csr_batches: int = 0
+    dense_reasons: dict = field(default_factory=dict)
 
 
 def _pos_runs(out_path: str) -> List[tuple]:
@@ -214,12 +223,17 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
            cfg: Optional[PolishConfig] = None, engine: str = "cuda",
            out=None, stats: Optional[PolishStats] = None,
            skip_contigs: Optional[set] = None,
-           verbose: bool = False, device=None) -> List[PolishedContig]:
+           verbose: bool = False, device=None,
+           dp_variant: Optional[str] = None) -> List[PolishedContig]:
     """Polish all contigs of `fa_path` using `bam_path` alignments and yak tables.
 
     engine: 'cuda' (device windowed engine) or 'oracle' (reference-faithful
     host). device: for engine 'cuda', "cuda" (default) or "cpu"; raises when
-    CUDA is wanted and absent.
+    CUDA is wanted and absent. dp_variant: the engine's DP formulation, "v2",
+    "base" or "dynk" (None: the NP2_DP_DYNK / NP2_DP_BASE environment
+    variables, else "v2"); the output is the same under each.
+    cfg.threads > 1 polishes contigs concurrently through one cross-contig
+    batcher; output order stays input order.
     If `out` is a binary file object, FASTA records are written as completed and
     sequences are not retained (returns empty list).
     skip_contigs: names to skip (resume support; see completed_contigs).
@@ -228,15 +242,13 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
     if engine not in ("cuda", "oracle"):
         raise ValueError(f"unknown engine {engine!r} (expected 'cuda' or "
                          "'oracle')")
-    if cfg.threads > 1:
-        raise NotImplementedError(
-            "threads > 1 needs the cross-contig batcher, which is not ported "
-            "yet (ROADMAP Queue 1: pipeline/batcher.py); run with -t 1")
-    dev = None
+    dev = variants = None
     if engine == "cuda":
         from ..utils.torchcfg import resolve_device
+        from .engine import resolve_dp_variants
 
         dev = resolve_device(device)
+        variants = resolve_dp_variants(dp_variant)
     t_start = time.time()
     from ..utils.timing import stage
 
@@ -280,7 +292,8 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
             if engine == "cuda":
                 from .engine import polish_contig_cuda
                 cb = polish_contig_cuda(seq, recs, tables, cfg, device=dev,
-                                        native=native, pre_ingest=pre)
+                                        native=native, pre_ingest=pre,
+                                        dp_variant=variants)
             else:
                 cb = polish_contig(seq, recs, tables, cfg)
             passthrough = False
@@ -310,34 +323,74 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
             print(f"[np2] {name}: {len(seq)} -> {len(out_seq)} bases in "
                   f"{dt:.1f}s", file=sys.stderr)
 
-    if engine == "cuda" and use_native and len(todo) > 1:
-        # one-contig lookahead (reference input-thread prefetch,
-        # main.rs:1703-1715): the NEXT contig's native BAM ingest runs on a
-        # helper thread while the current contig occupies the device.
-        # Bounded memory: at most ONE extra contig's stream is resident.
-        from concurrent.futures import ThreadPoolExecutor
+    batcher = None
+    if engine == "cuda" and cfg.threads > 1 and len(todo) > 1:
+        # cross-contig device batching: concurrent contig threads share full
+        # device batches instead of each padding its own chunks
+        from .batcher import DeviceBatcher, set_active_batcher
 
-        from ..models.oracle import build_alignseqs_native_flat
+        batcher = DeviceBatcher(dev, variants)
+        set_active_batcher(batcher)
+    try:
+        if cfg.threads > 1 and len(todo) > 1:
+            # contig-level thread pool (the reference's worker parallelism;
+            # windows within a contig are already device-parallel). Output
+            # stays input-order.
+            from concurrent.futures import ThreadPoolExecutor
 
-        def _pre_ingest(name: str, seq: bytes):
-            tid = name_to_tid.get(name)
-            if tid is None or len(seq) < cfg.min_ctg_len:
-                return None
-            return build_alignseqs_native_flat(bam_path, tid, seq, cfg)
+            with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                futs = [(name, seq, ex.submit(run_one, name, seq))
+                        for name, seq in todo]
+                for name, seq, fut in futs:
+                    cb, passthrough, dt = fut.result()
+                    finish(name, seq, cb, passthrough, dt)
+        elif engine == "cuda" and use_native and len(todo) > 1:
+            # one-contig lookahead at -t 1 (reference input-thread prefetch,
+            # main.rs:1703-1715): the NEXT contig's native BAM ingest runs
+            # on a helper thread while the current contig occupies the
+            # device. Bounded memory: at most ONE extra contig's stream is
+            # resident.
+            from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=1) as pre_pool:
-            pre_futs: Dict[int, object] = {}
-            for i, (name, seq) in enumerate(todo):
-                if i + 1 < len(todo):
-                    pre_futs[i + 1] = pre_pool.submit(
-                        _pre_ingest, *todo[i + 1])
-                cb, passthrough, dt = run_one(
-                    name, seq, pre=pre_futs.pop(i, None))
+            from ..models.oracle import build_alignseqs_native_flat
+
+            def _pre_ingest(name: str, seq: bytes):
+                tid = name_to_tid.get(name)
+                if tid is None or len(seq) < cfg.min_ctg_len:
+                    return None
+                return build_alignseqs_native_flat(bam_path, tid, seq, cfg)
+
+            with ThreadPoolExecutor(max_workers=1) as pre_pool:
+                pre_futs: Dict[int, object] = {}
+                for i, (name, seq) in enumerate(todo):
+                    if i + 1 < len(todo):
+                        pre_futs[i + 1] = pre_pool.submit(
+                            _pre_ingest, *todo[i + 1])
+                    cb, passthrough, dt = run_one(
+                        name, seq, pre=pre_futs.pop(i, None))
+                    finish(name, seq, cb, passthrough, dt)
+        else:
+            for name, seq in todo:
+                cb, passthrough, dt = run_one(name, seq)
                 finish(name, seq, cb, passthrough, dt)
-    else:
-        for name, seq in todo:
-            cb, passthrough, dt = run_one(name, seq)
-            finish(name, seq, cb, passthrough, dt)
+    finally:
+        if batcher is not None:
+            set_active_batcher(None)
+            batcher.shutdown()
+            stats.batches = batcher.stats.batches
+            stats.batch_fill = batcher.stats.fill
+            stats.csr_batches = batcher.stats.csr_batches
+            stats.dense_reasons = dict(batcher.stats.dense_reasons)
+            # warn about any dense fallback EXCEPT pure no-CSR-closure runs
+            # (a request without a CSR aggregation closure is expected to go
+            # dense; a bail in other batches is not, and must stay visible
+            # even when both kinds occur in one run)
+            unexpected = set(stats.dense_reasons) - {"no_csr_closure"}
+            if stats.csr_batches < stats.batches and unexpected:
+                print("[np2] warning: %d/%d device batches fell back to "
+                      "dense host aggregation (%s)" % (
+                          stats.batches - stats.csr_batches, stats.batches,
+                          stats.dense_reasons), file=sys.stderr)
     stats.seconds = time.time() - t_start
     return results
 

@@ -4,6 +4,7 @@ getrusage summary; here stages are first-class metrics)."""
 from __future__ import annotations
 
 import sys
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -11,6 +12,7 @@ from contextlib import contextmanager
 _ENABLED = False
 _totals: dict = defaultdict(float)
 _counts: dict = defaultdict(int)
+_lock = threading.Lock()  # contig threads and the batcher's worker share the totals
 
 
 def enable(flag: bool = True) -> None:
@@ -27,8 +29,9 @@ def stage(name: str):
     try:
         yield
     finally:
-        _totals[name] += time.time() - t0
-        _counts[name] += 1
+        with _lock:
+            _totals[name] += time.time() - t0
+            _counts[name] += 1
 
 
 def reset() -> None:

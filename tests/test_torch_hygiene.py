@@ -80,3 +80,17 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         cli.main([f"{base}/slice.bam", f"{base}/slice.fa", f"{base}/k21.yak",
                   "-o", str(out)])
     assert not out.exists()
+    # threads > 1: for want of CUDA, not for want of a batcher
+    with pytest.raises(RuntimeError, match="CUDA"):
+        polish(f"{base}/m20.fa", f"{base}/m20.bam", [f"{base}/m20.k21.yak"],
+               PolishConfig(min_ctg_len=0, threads=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([f"{base}/m20.bam", f"{base}/m20.fa", f"{base}/m20.k21.yak",
+                  "-t", "8", "-o", str(out)])
+    assert not out.exists()
+    from nextpolish2_tpu_torch.pipeline.batcher import (DeviceBatcher,
+                                                        get_active_batcher)
+
+    assert get_active_batcher() is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceBatcher("cuda")
