@@ -16,7 +16,12 @@ line):
      shapes (K/B/W 8/512/1280, 8/128/1280, 8/128/2560, 48/128/2560), each
      filled with the E. coli and slice windows that make the main path
      choose that shape, with CUDA-event timings and bounds counted from the
-     chunk's data; the three DP kernels must also agree with each other;
+     chunk's data; the three DP kernels must also agree with each other.
+     Then the two slot-parallel kernels (consensus_dp_v2, backtrack_packed)
+     against their twins on the seeded edge-case tables of
+     nextpolish2_tpu_torch/utils/dp_cases.py: odd K, B and W, spans of 0 and
+     W, full columns, deep insertion chains, invalid slots that match, walks
+     cut at 0, 1 and 7 steps;
   3. the main path: testdata/ecoli.* (one 4.6 Mb contig, k21 table,
      min_ctg_len=1000, -t 1) through orchestrator.polish(engine="cuda");
      output must equal testdata/ecoli.truth.fa, every kernel must launch and
@@ -41,6 +46,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -296,7 +302,15 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
     }
     # backtrack bound: the states the walks visit (key, cnt, cov, besti),
     # the start column's scores, and the packed output; ~30 int ops a step
-    visited = int(ok[:, ms_steps + 2].long().sum()) + B
+    alive_steps = ok[:, ms_steps + 2].long() & 0xFFFF
+    visited = int(alive_steps.sum()) + B
+    # the dependent chain each kernel cannot shorten: the columns the widest
+    # window scans (v2: its clamped span; base and dynamic-K: all W), the
+    # steps of the longest walk
+    span_max = int(span.clamp(0, W).max())
+    chain = {"consensus_dp_v2": span_max, "consensus_dp_base": W,
+             "consensus_dp_dynk": W,
+             "backtrack_packed": int(alive_steps.max())}
     work["backtrack_packed"] = (
         visited * 13 + B * K * 4 + B * 9 + B * (ms_steps + 8) * 2,
         30 * visited)
@@ -322,7 +336,9 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
             "plain_ms": plain_ms[name],
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": None, "chain_steps": chain[name],
+            "ns_per_chain_step": (ms[name] * 1e6 / chain[name]
+                                  if chain[name] else None)})
     print(json.dumps({"phase": "kernels_vs_plain", "K": K, "B": B, "W": W,
                       "lanes": {s["source"]: [len(ids), len(set(ids.tolist()))]
                                 for s, ids in pieces},
@@ -333,6 +349,20 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
                       "unreachable_slots_where_formulations_part": parted,
                       "rows": rows}), flush=True)
     return rows
+
+
+def edge_case_check(dev) -> None:
+    """consensus_dp_v2 and backtrack_packed against their twins on every
+    seeded edge-case table, bit for bit (dp_cases.check_kernels raises on a
+    difference)."""
+    from nextpolish2_tpu_torch.utils import dp_cases
+
+    t0 = time.time()
+    held = [dp_cases.check_kernels(case, dev)
+            for case in dp_cases.edge_cases()]
+    print(json.dumps({"phase": "kernel_edge_cases", "max_abs_err": 0,
+                      "seconds": time.time() - t0, "cases": held}),
+          flush=True)
 
 
 def polish_check(fa: str, bam: str, yaks: list, truth: str, device,
@@ -527,8 +557,17 @@ def main() -> int:
                       "native_loaded": True}))
     for name, v in info.items():
         for line in v["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "entry function")):
                 print(f"ptxas {name}: {line.strip()}")
+    # the slot-parallel kernels keep their carry in registers: no instance
+    # may have a stack frame or spill
+    for name in ("consensus_dp", "backtrack"):
+        frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads",
+                            info[name]["log"])
+        if not frames or any(int(x) for f in frames for x in f):
+            fail(f"{name}: ptxas reports a stack frame or spills: {frames}")
 
     # phase 2: kernels against their plain twins at the production shapes,
     # on E. coli windows; the slice adds the only K=48-tier window in the
@@ -547,6 +586,7 @@ def main() -> int:
     for K, B, W in DP_SHAPES:
         for r in measure_shape(sources, K, B, W, dev):
             rows[(r["name"], K, B, W)] = r
+    edge_case_check(dev)
 
     # phase 3: the main path
     paths = Paths()

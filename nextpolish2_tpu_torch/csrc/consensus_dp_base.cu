@@ -17,9 +17,11 @@
 // per window. Rows that cannot match are skipped through the valid-target
 // bit mask (pick_reduce).
 //
-// Bound: O(K^2) compare/select per column per window against 13 B/slot of
-// traffic: operation-bound on paper, latency-bound in practice on the
-// per-thread column chain (a B=128 chunk is 4 warps of one SM).
+// Bound: by bytes (13 B per slot; a column holds one or two live slots, so
+// the compare/select work stays far below the card's integer rate). In
+// practice it waits on the per-thread column chain: a B=128 chunk is 4 warps
+// of one SM. The slot-parallel mapping of consensus_dp.cu (dp_common.cuh)
+// is the way out.
 
 #include "dp_common.cuh"
 

@@ -56,7 +56,7 @@ _ARGS = {"consensus_dp": (8, 3), "consensus_dp_base": (7, 3),
          "consensus_dp_dynk": (8, 3), "backtrack": (8, 4)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-K_MAX = 64  # the runtime-K kernel path's slot bound (uint64 slot masks)
+K_MAX = 64  # the kernels' slot bound (uint64 slot masks, two slots a lane)
 
 LAUNCHES: dict = collections.Counter()
 SHAPE_LAUNCHES: dict = collections.Counter()
@@ -529,6 +529,8 @@ def backtrack_packed(key, cnt, cov, scores, besti, last_col, seed,
     if key.device.type != "cuda":
         raise ValueError(f"backtrack_packed: unsupported device {key.device}")
     B, W, K = key.shape
+    if not 1 <= K <= K_MAX:
+        raise ValueError(f"backtrack_packed: K={K} outside 1..{K_MAX}")
     dev = key.device
     _check(key, "key", torch.int32, (B, W, K), dev)
     _check(cnt, "cnt", torch.int32, (B, W, K), dev)

@@ -1,0 +1,110 @@
+"""A short probe of the two slot-parallel kernels for the first run on a card
+after a change to csrc/consensus_dp.cu, csrc/backtrack.cu or
+csrc/dp_common.cuh: seconds, where the whole smoke run takes minutes.
+
+    python3 -m nextpolish2_tpu_torch.utils.kernel_probe
+
+It builds the kernels and prints what `ptxas -v` says (registers, stack,
+spills), holds consensus_dp_v2 and backtrack_packed to their plain twins on
+every edge-case table of dp_cases (every failing case is reported, not only
+the first), and times both on synthetic chunks of the production shapes: a
+4-window table from dp_cases.make_case (sparse: about 1.3 live slots a
+column, as real chunks; dense: 2 at K=8, 12 at K=48) repeated to B windows,
+with the first and last 4 windows compared with the twins. One JSON line per
+shape (median of 20 launches, CUDA events). Exit code 1 on any difference.
+The times are for comparing two builds of a kernel with each other; the
+figures of record come from chip_smoke.py, on real chunks.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+
+SHAPES = [(8, 512, 1280, 1027), (8, 128, 1280, 1027), (8, 128, 2560, 1421),
+          (48, 128, 1280, 1027), (48, 128, 2560, 1421)]  # K, B, W, span
+DENSITIES = {
+    "sparse": lambda K: dict(reads=4, err=0.01, p_ins=0.01, p_late=0.05),
+    "dense": lambda K: dict(reads=6 if K == 8 else 30,
+                            err=0.05 if K == 8 else 0.3),
+}
+
+
+def _median_ms(fn, n: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    from ..ops import consensus_cuda as cc
+    from . import dp_cases
+
+    if not torch.cuda.is_available():
+        print("kernel_probe: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    print("card:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    info = cc.build_kernels(force=True)
+    for name in ("consensus_dp", "backtrack"):
+        for line in info[name]["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name}: {line.strip()}")
+    bad = 0
+    for case in dp_cases.edge_cases():
+        try:
+            print(json.dumps(dp_cases.check_kernels(case, dev)))
+        except AssertionError as e:
+            bad += 1
+            print(f"FAILED {e}")
+    for K, B, W, span in SHAPES:
+        for density, opts in DENSITIES.items():
+            case = dp_cases.make_case(
+                "probe", 7, K, 4, W, [span, span - 3, span - 40, span],
+                **opts(K))
+            small = dp_cases.case_tensors(case, dev)
+            key, cnt, cov, lead, seed8, sp, last_col = (
+                x.repeat(B // 4, *([1] * (x.dim() - 1))) for x in small)
+            steps = W + 128
+            sk, bk = cc.consensus_dp_v2(key, cnt, cov, lead, seed8, sp)
+            ok = cc.backtrack_packed(key, cnt, cov, sk, bk, last_col, seed8,
+                                     steps)
+            s4, b4 = cc.consensus_dp_plain(*small[:6])
+            o4 = cc.backtrack_plain(*small[:3], s4, b4, small[6], small[4],
+                                    steps)
+            equal = all(torch.equal(got[sl], want) for got, want in
+                        ((sk, s4), (bk, b4), (ok, o4))
+                        for sl in (slice(0, 4), slice(B - 4, B)))
+            bad += not equal
+            print(json.dumps({
+                "K": K, "B": B, "W": W, "density": density,
+                "live_slots_mean": float((key >= 0).sum(-1).float().mean()),
+                "equal_to_twins": equal,
+                "dp_ms": _median_ms(lambda: cc.consensus_dp_v2(
+                    key, cnt, cov, lead, seed8, sp)),
+                "backtrack_ms": _median_ms(lambda: cc.backtrack_packed(
+                    key, cnt, cov, sk, bk, last_col, seed8, steps)),
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

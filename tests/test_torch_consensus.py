@@ -27,6 +27,7 @@ from nextpolish2_tpu.pipeline.windows import (aggregate_csr_host,
 from nextpolish2_tpu.utils.seqcodes import ASCII2CODE
 from nextpolish2_tpu_torch.ops import consensus as tc
 from nextpolish2_tpu_torch.ops import consensus_cuda as tk
+from nextpolish2_tpu_torch.utils import dp_cases
 
 from test_pallas_dp import build_tables
 
@@ -224,10 +225,13 @@ def test_whole_blob_window_wider_than_chunk():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_twins_on_card():
-    """On a CUDA card: each kernel against its plain twin on a real chunk."""
+    """On a CUDA card: each kernel against its plain twin on a real chunk
+    and on every edge-case table."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
+    for case in dp_cases.edge_cases():
+        assert dp_cases.check_kernels(case, dev)["K"] == case.key.shape[2]
     for K, W in [(8, 1280), (48, 2560)]:
         B = 16
         blob, P, Pd, Pe, _ = slice_chunk(K, B, W)

@@ -26,6 +26,7 @@ from nextpolish2_tpu.ops.consensus_pallas import consensus_dp_pallas
 from nextpolish2_tpu_torch.ops import consensus as tc
 from nextpolish2_tpu_torch.ops import consensus_cuda as tk
 from nextpolish2_tpu_torch.pipeline import engine as te
+from nextpolish2_tpu_torch.utils import dp_cases
 
 from test_pallas_dp import build_tables
 from test_torch_consensus import _tables_from_blob, slice_chunk
@@ -399,11 +400,14 @@ def test_engine_runs_the_named_formulation(tmp_path, variant):
 @pytest.mark.parametrize("variant", ["base", "dynk"])
 def test_kernel_matches_plain_twin_on_card(variant):
     """On a CUDA card: the kernel against its plain twin, every output bit,
-    on a real K=8 chunk, a K=48 chunk and the below-NEG_INF-1 table."""
+    on a real K=8 chunk, a K=48 chunk, the below-NEG_INF-1 table and every
+    edge-case table."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     chunks = [below_neg1_tables()[:6]]
+    chunks += [(c.key, c.cnt, c.cov, (c.key >= 0).sum(2).astype(np.int32),
+                c.lead, c.seed) for c in dp_cases.edge_cases()]
     for K, W in [(8, 1280), (48, 2560)]:
         blob, P, Pd, Pe, _ = slice_chunk(K, 16, W)
         key, cnt, cov, lead, seed, _lc = _tables_from_blob(blob, 16, W, K, P,
