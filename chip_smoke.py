@@ -10,18 +10,19 @@ line):
   1. the card's name and power limit; build the CUDA kernels (nvcc, one
      process per source, in parallel) and the native host library from the
      checkout's sources;
-  2. each kernel (the three DP formulations v2, base and dynamic-K, and the
-     backtrack) against its plain PyTorch twin on the card, bit for bit, on
-     real chunks built by the port's host pipeline at the four production
-     shapes (K/B/W 8/512/1280, 8/128/1280, 8/128/2560, 48/128/2560), each
-     filled with the E. coli and slice windows that make the main path
-     choose that shape, with CUDA-event timings and bounds counted from the
-     chunk's data; the three DP kernels must also agree with each other.
-     Then the two slot-parallel kernels (consensus_dp_v2, backtrack_packed)
-     against their twins on the seeded edge-case tables of
-     nextpolish2_tpu_torch/utils/dp_cases.py: odd K, B and W, spans of 0 and
-     W, full columns, deep insertion chains, invalid slots that match, walks
-     cut at 0, 1 and 7 steps;
+  2. each kernel (the three DP formulations v2, base and dynamic-K, all on
+     the slot-parallel mapping, and the backtrack) against its plain PyTorch
+     twin on the card, bit for bit, on real chunks built by the port's host
+     pipeline at the four production shapes (K/B/W 8/512/1280, 8/128/1280,
+     8/128/2560, 48/128/2560), each filled with the E. coli and slice
+     windows that make the main path choose that shape, with CUDA-event
+     timings and bounds counted from the chunk's data; the three DP kernels
+     must also agree with each other. Then all four kernels against their
+     twins on the seeded edge-case tables of
+     nextpolish2_tpu_torch/utils/dp_cases.py (dynamic-K under an exact and
+     under a mangled n_slots): odd K, B and W, spans of 0 and W, full
+     columns, deep insertion chains, invalid slots that match a target
+     before or behind them, walks cut at 0, 1 and 7 steps;
   3. the main path: testdata/ecoli.* (one 4.6 Mb contig, k21 table,
      min_ctg_len=1000, -t 1) through orchestrator.polish(engine="cuda");
      output must equal testdata/ecoli.truth.fa, every kernel must launch and
@@ -352,9 +353,8 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
 
 
 def edge_case_check(dev) -> None:
-    """consensus_dp_v2 and backtrack_packed against their twins on every
-    seeded edge-case table, bit for bit (dp_cases.check_kernels raises on a
-    difference)."""
+    """All four kernels against their twins on every seeded edge-case table,
+    bit for bit (dp_cases.check_kernels raises on a difference)."""
     from nextpolish2_tpu_torch.utils import dp_cases
 
     t0 = time.time()
@@ -560,9 +560,9 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill",
                                        "entry function")):
                 print(f"ptxas {name}: {line.strip()}")
-    # the slot-parallel kernels keep their carry in registers: no instance
-    # may have a stack frame or spill
-    for name in ("consensus_dp", "backtrack"):
+    # every kernel keeps its carry in registers: no instance may have a
+    # stack frame or spill
+    for name in cc.SOURCES:
         frames = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill "
                             r"stores, (\d+) bytes spill loads",
                             info[name]["log"])

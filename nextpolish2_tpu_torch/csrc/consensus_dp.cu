@@ -42,6 +42,8 @@
 //    current one is picked; scores and besti of a tile are collected in
 //    shared memory and leave with 16-byte stores. No load or store of the
 //    column chain touches device memory.
+//  - the tile ring, the one-column decode and the tile flush are
+//    dp_common.cuh's, shared with the base and dynamic-K kernels.
 //  - every window stops at its own span; a warp runs to the largest span of
 //    its windows with the finished groups masked, and the columns past a
 //    span are filled with NEG_INF / 0 by all lanes of the group.
@@ -52,52 +54,6 @@ namespace {
 
 using namespace np2t;
 
-constexpr int kTile = 32;   // columns per staged tile; a multiple of 16, so
-                            // every tile starts 16-byte aligned when the
-                            // window's row does
-constexpr int kStages = 3;  // tiles in flight
-constexpr int kPad = 8;     // words between the buffers of a warp's windows:
-                            // 4 groups reading slot s of their column then
-                            // hit 4 different sets of banks
-
-template <int KT>
-struct V2Map {
-  static constexpr int G = KT == 8 ? 8 : 32;  // lanes per window
-  static constexpr int S = KT == 8 ? 1 : 2;   // slots per lane
-  static constexpr int NW = 32 / G;           // windows per warp
-};
-
-// shared-memory layout per window, in words (besti: bytes)
-__host__ __device__ constexpr int in_stride(int K) {
-  return 2 * kTile * K + kTile + kPad;  // key tile, cnt tile, cov tile
-}
-__host__ __device__ constexpr int sc_stride(int K) { return kTile * K + kPad; }
-__host__ __device__ constexpr int bi_stride(int K) {
-  return kTile * K + 4 * kPad;
-}
-__host__ __device__ constexpr size_t smem_bytes(int K, int NW) {
-  return 4 * (size_t)NW * (kStages * in_stride(K) + sc_stride(K)) +
-         (size_t)NW * bi_stride(K);
-}
-
-// One column as the lanes of a group hold it: each lane its slots' keys,
-// gain and predicates, every lane the group's bit sets.
-template <int S, typename mask_t>
-struct ColumnLanes {
-  int b1[S], b2[S], b2m[S], b3m[S], gain[S];
-  bool on[S];      // the slot exists and its column lies below the span
-  bool valid[S];   // on, and key >= 0
-  bool same[S];    // on, and the key carries the same-column flag
-  bool b2head[S];
-  mask_t head, nongap, vmask;
-  mask_t same_valid;       // same-column slots that can score
-  // warp-wide:
-  bool neg7;               // some query is -7: pools widen to all K slots
-  bool invalid_same_work;  // an invalid same-column slot may match a target
-  unsigned n_vmask;        // largest count of vmask slots of a group
-  unsigned n_same_valid;   // largest count of same_valid slots of a group
-};
-
 template <int KT>
 __global__ void __launch_bounds__(32)
 dp_v2_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
@@ -105,32 +61,22 @@ dp_v2_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
              const uint8_t* __restrict__ seed, const int* __restrict__ span,
              int* __restrict__ scores, int8_t* __restrict__ besti,
              int B, int W, int k_rt) {
-  using Map = V2Map<KT>;
+  using Map = SlotMap<KT>;
   constexpr int G = Map::G, S = Map::S, NW = Map::NW;
   using Group = LaneGroup<G, S>;
   using mask_t = typename Group::mask_t;
   using Col = ColumnLanes<S, mask_t>;
   const int K = KT > 0 ? KT : k_rt;
   extern __shared__ int4 smem4[];
-  int* const smem = reinterpret_cast<int*>(smem4);
 
   const Group g(threadIdx.x);
   const int grp = threadIdx.x / G;
   const int b = blockIdx.x * NW + grp;
   const bool live = b < B;  // a warp's last groups may own no window
   const size_t bw = live ? (size_t)b * W : 0;
-  const int tk = kTile * K;
-  const int stage_stride = NW * in_stride(K);
-  int* const in_g = smem + grp * in_stride(K);
-  int* const out_sc = smem + kStages * stage_stride + grp * sc_stride(K);
-  int8_t* const out_bi =
-      reinterpret_cast<int8_t*>(smem + kStages * stage_stride +
-                                NW * sc_stride(K)) +
-      grp * bi_stride(K);
-  // 16-byte pieces need every window's row to start 16-byte aligned
-  const bool vec_w = ((size_t)W * K) % 4 == 0;   // key, cnt, scores
-  const bool vec_c = W % 4 == 0;                 // cov
-  const bool vec_b = ((size_t)W * K) % 16 == 0;  // besti
+  const WindowTiles<G, NW, 1> tiles(reinterpret_cast<int*>(smem4), grp, K, W);
+  int* const out_sc = tiles.out_sc;
+  int8_t* const out_bi = tiles.out_bi;
 
   int sp = 0, lead_b = 0;
   bool seed_b = false;
@@ -153,18 +99,9 @@ dp_v2_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
   }
   const mask_t all_k = Group::low_bits(K);
 
-  // tile t of this group's window -> stage t % kStages; every lane commits
-  // one (possibly empty) group per call, so the wait counts stay uniform
   auto prefetch = [&](int t) {
-    const int c0 = t * kTile;
-    if (t < n_tiles && c0 < sp) {
-      const int ncol = min(kTile, W - c0);
-      int* dst = in_g + (t % kStages) * stage_stride;
-      stage_words(dst, key + (bw + c0) * K, ncol * K, g.rank, G, vec_w);
-      stage_words(dst + tk, cnt + (bw + c0) * K, ncol * K, g.rank, G, vec_w);
-      stage_words(dst + 2 * tk, cov + bw + c0, ncol, g.rank, G, vec_c);
-    }
-    cp_async_commit();
+    tiles.prefetch(t < n_tiles && t * kTile < sp, t, g.rank, key, cnt, cov,
+                   nullptr, bw, W, K);
   };
 
   int p_sc[S], p_b2[S], p_b3[S];
@@ -183,71 +120,13 @@ dp_v2_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
     cp_async_wait<kStages - 1>();
     __syncwarp();
     const int c0 = t * kTile;
-    const int* key_s = in_g + (t % kStages) * stage_stride;
-    const int* cnt_s = key_s + tk;
-    const int* cov_s = key_s + 2 * tk;
+    const int* tile = tiles.stage(t);
 
-    // decode column c0 + cc from the staged tile; it does not depend on the
-    // carry, so it runs one column ahead of the pick
+    // the decode does not depend on the carry, so it runs one column ahead
+    // of the pick
     auto decode = [&](int cc) {
-      Col d;
-      const int c = c0 + cc;
-      const bool act = c < sp;
-      const int cv = act ? cov_s[cc] : 0;
-      bool head[S], nongap[S], vbit[S], sv[S];
-      bool n7 = false, inv = false;
-      unsigned targets = 0, queries = 0;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const bool on = act && exists[s];
-        int k = -1, n = 0;
-        if (on) {
-          k = key_s[cc * K + slot[s]];
-          n = cnt_s[cc * K + slot[s]];
-        }
-        const SlotDecode sd = decode_slot(k, c);
-        d.b1[s] = sd.b1;
-        d.b2[s] = sd.b2;
-        d.b2m[s] = on ? sd.b2m : -7;
-        d.b3m[s] = on ? sd.b3m : -8;
-        d.gain[s] = 10 * n - 4 * cv;
-        d.on[s] = on;
-        d.valid[s] = on && sd.valid;
-        d.same[s] = on && sd.same;
-        d.b2head[s] = sd.b2head;
-        head[s] = on && sd.head;
-        nongap[s] = on && sd.nongap;
-        vbit[s] = on && sd.vbit;
-        sv[s] = d.valid[s] && d.same[s];
-        n7 = n7 || (on && sd.b1 == -7);
-        // an invalid same-column slot can only match a target whose b2 key
-        // shares its b1 key's bits: 5 of them, one bit of a 32-bit set, tell
-        // whether the besti pass can find anything (an empty slot's delta
-        // field is 0xFFFF, a target's is an insertion depth)
-        if (vbit[s]) targets |= 1u << ((sd.b2m >> 4) & 31);
-        if (d.same[s] && !d.valid[s]) {
-          inv = true;
-          queries |= 1u << ((sd.b1 >> 4) & 31);
-        }
-      }
-      unsigned raw[S];
-      Group::ballots(head, raw);
-      d.head = g.mask_of(raw);
-      Group::ballots(nongap, raw);
-      d.nongap = g.mask_of(raw);
-      Group::ballots(sv, raw);
-      d.same_valid = g.mask_of(raw);
-      d.n_same_valid = Group::widest(raw);
-      Group::ballots(vbit, raw);
-      d.vmask = g.mask_of(raw);
-      d.n_vmask = Group::widest(raw);
-      // b1 == -7 needs a b1 column of -1 mod 2^14: columns 0 and 1, or far
-      // beyond any chunk's width
-      d.neg7 = ((c + 1) & 0x3FFF) <= 2 && __any_sync(kFullMask, n7);
-      targets = __reduce_or_sync(kFullMask, targets);
-      d.invalid_same_work =
-          __any_sync(kFullMask, inv && (d.neg7 || (targets & queries) != 0));
-      return d;
+      return decode_column_lanes<false>(g, tile, tiles.tk, cc, c0 + cc,
+                                        c0 + cc < sp, K, slot, exists);
     };
 
     // columns that some window of the warp still scans
@@ -351,10 +230,7 @@ dp_v2_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
       out_bi[e] = 0;
     }
     __syncwarp();
-    if (live) {
-      flush_words(scores + (bw + c0) * K, out_sc, ncol * K, g.rank, G, vec_w);
-      flush_bytes(besti + (bw + c0) * K, out_bi, ncol * K, g.rank, G, vec_b);
-    }
+    if (live) tiles.flush(scores, besti, bw, c0, ncol, g.rank, K);
     // the next tile overwrites the output buffer, and the next prefetch the
     // stage this tile was read from
     __syncwarp();
@@ -365,8 +241,9 @@ dp_v2_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
   const int c1 = min(W, n_tiles * kTile);
   if (live && c1 < W) {
     fill_words(scores + (bw + c1) * K, (W - c1) * K, kNegInf, g.rank, G,
-               vec_w);
-    fill_bytes(besti + (bw + c1) * K, (W - c1) * K, 0, g.rank, G, vec_b);
+               tiles.vec_w);
+    fill_bytes(besti + (bw + c1) * K, (W - c1) * K, 0, g.rank, G,
+               tiles.vec_b);
   }
 }
 
@@ -374,17 +251,16 @@ template <int KT>
 int launch_v2(const void* key, const void* cnt, const void* cov,
               const void* lead, const void* seed, const void* span,
               void* scores, void* besti, int B, int W, int K, void* stream) {
-  constexpr int NW = V2Map<KT>::NW;
+  constexpr int NW = SlotMap<KT>::NW;
   static SmemLimit limit;
-  const size_t smem = smem_bytes(K, NW);
+  auto* kernel = dp_v2_kernel<KT>;
   // the runtime-K instance asks once for what its widest K needs
-  const int rc = limit.raise(dp_v2_kernel<KT>,
-                             smem_bytes(KT > 0 ? KT : kMaxK, NW));
+  const int rc = limit.raise(kernel, smem_bytes(KT > 0 ? KT : kMaxK, NW, 1));
   if (rc != 0) return rc;
-  dp_v2_kernel<KT><<<(B + NW - 1) / NW, 32, smem, (cudaStream_t)stream>>>(
-      (const int*)key, (const int*)cnt, (const int*)cov, (const int*)lead,
-      (const uint8_t*)seed, (const int*)span, (int*)scores, (int8_t*)besti, B,
-      W, K);
+  NP2T_LAUNCH_WARPS(kernel, (B + NW - 1) / NW, smem_bytes(K, NW, 1), stream,
+                    (const int*)key, (const int*)cnt, (const int*)cov,
+                    (const int*)lead, (const uint8_t*)seed, (const int*)span,
+                    (int*)scores, (int8_t*)besti, B, W, K);
   return (int)cudaGetLastError();
 }
 

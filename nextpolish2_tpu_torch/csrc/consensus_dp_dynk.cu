@@ -18,40 +18,28 @@
 // taken as given: a column whose n_slots is smaller than its count of valid
 // keys leaves the slots past it at NEG_INF.
 //
-// Design and bound: as consensus_dp_base.cu (dp_common.cuh::
-// dp_reduce_window, one thread per window), with sum(min(n_slots, K)) slot
-// steps instead of K per column, and one more int32 read per column.
+// Bound: by bytes, as consensus_dp_base.cu, with one more int32 read per
+// column; in practice the W dependent column steps per window.
+//
+// Design: dp_common.cuh::dp_reduce_kernel with the slot bound, the mapping
+// of consensus_dp.cu and consensus_dp_base.cu (lanes are slots, one warp per
+// block, the carry in registers, 32-column tiles staged by cp.async two
+// ahead, outputs flushed a tile at a time, all-empty columns filled and not
+// scored). The bound is one more predicate on the lane that owns the slot:
+// n_slots travels as a fourth tile beside cov, and the decode of a column
+// clamps it to [0, K] and compares it with each lane's slot index.
 
 #include "dp_common.cuh"
 
-namespace {
-
-template <int KT>
-__global__ void __launch_bounds__(128)
-dp_dynk_kernel(const int* __restrict__ key, const int* __restrict__ cnt,
-               const int* __restrict__ cov, const int* __restrict__ n_slots,
-               const int* __restrict__ lead, const uint8_t* __restrict__ seed,
-               int* __restrict__ scores, int8_t* __restrict__ besti, int B,
-               int W, int K) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  np2t::dp_reduce_window<KT>(key, cnt, cov, n_slots, lead, seed, scores,
-                             besti, b, W, K);
-}
-
-}  // namespace
-
 // key/cnt int32 [B,W,K], cov/n_slots int32 [B,W], lead int32 [B], seed u8
-// [B] -> scores int32 [B,W,K], besti int8 [B,W,K]. Returns the launch's
-// cudaGetLastError() (0 on success); K must be in 1..64.
+// [B] -> scores int32 [B,W,K], besti int8 [B,W,K]. Launches on `stream` and
+// does not synchronise. Returns the launch's cudaGetLastError() (0 on
+// success); K must be in 1..64.
 extern "C" int np2t_consensus_dp_dynk(const void* key, const void* cnt,
                                       const void* cov, const void* n_slots,
                                       const void* lead, const void* seed,
                                       void* scores, void* besti, int B, int W,
                                       int K, void* stream) {
-  return np2t::launch_by_k(
-      dp_dynk_kernel<8>, dp_dynk_kernel<48>, dp_dynk_kernel<0>, B, W, K,
-      stream, (const int*)key, (const int*)cnt, (const int*)cov,
-      (const int*)n_slots, (const int*)lead, (const uint8_t*)seed,
-      (int*)scores, (int8_t*)besti, B, W, K);
+  return np2t::launch_reduce<true>(key, cnt, cov, n_slots, lead, seed, scores,
+                                   besti, B, W, K, stream);
 }

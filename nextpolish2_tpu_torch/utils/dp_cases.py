@@ -7,7 +7,9 @@ span = W among them, different spans side by side), columns full to K live
 slots, same-column (insertion) chains several levels deep, ties between gap
 and non-gap predecessors, chains that sink below NEG_INF - 1, invalid slots
 whose query does match a predecessor (their besti is part of the kernels'
-output), invalid slots whose query decodes to the -7 sentinel, seeded and
+output), invalid slots whose query decodes to the -7 sentinel, invalid same-column
+slots that sit before their target (which the _pick reduction of the base and
+dynamic-K formulations matches and the running pick does not), seeded and
 unseeded windows at every lead. numpy and a seed only: the CPU tests hold the
 plain twins to the JAX package on these tables, and the smoke run on the card
 holds the kernels to the twins on the same tables.
@@ -122,14 +124,16 @@ def _window(rng, W: int, K: int, span: int, *, reads: int, err: float,
     return key, cnt
 
 
-def _plant_invalid(rng, key, cnt, span: int) -> None:
+def _plant_invalid(rng, key, cnt, span: int, later: bool = False) -> None:
     """Invalid (negative) keys in free slots of one window, in place.
 
     prev-pool trap: a valid f12 key of delta 0x7FFF in column c-1 and an
     invalid plain key of delta 0x8000 in column c whose (b1, b2) equal the
     former's (b2, b3): the invalid slot's pick matches, so its besti is the
     former's slot. same-column trap: the same pair inside one column, the
-    invalid key carrying flag bit 0. sentinel: an invalid key whose b1 decodes
+    invalid key carrying flag bit 0; with `later` the invalid key takes the
+    slot BEFORE its target, which then matches only in the formulations
+    whose same-column pool holds all K slots. sentinel: an invalid key whose b1 decodes
     to -7 (column 0 with f12, column 1 with plain flags). noise: random
     negative keys."""
     W, K = key.shape
@@ -146,8 +150,10 @@ def _plant_invalid(rng, key, cnt, span: int) -> None:
             put(c - 1, pack_key(0x7FFF, F12, a, b, q), 1)
             put(c, pack_key(0x8000, 0, b, q, a))
         elif r < 0.30 and len(free(c)) >= 2:
-            put(c, pack_key(0x7FFF, F12, a, b, q), 1)
-            put(c, pack_key(0x8000, F23, b, q, a))
+            pair = [(pack_key(0x7FFF, F12, a, b, q), 1),
+                    (pack_key(0x8000, F23, b, q, a), 0)]
+            for k, n in pair[::-1] if later else pair:
+                put(c, k, n)
         elif r < 0.45 and len(free(c)) >= 1:
             put(c, int(rng.integers(-(1 << 31), 0)))
     if span > 1:
@@ -167,7 +173,8 @@ def make_case(name: str, seed: int, K: int, B: int, W: int, spans, *,
               reads: int = 6, err: float = 0.15, p_ins: float = 0.1,
               max_ins: int = 2, bases: int = 4, p_gap: float = 0.05,
               p_late: float = 0.2, cold: bool = False, count_max: int = 3,
-              invalid: bool = False, past_w: bool = False) -> DpCase:
+              invalid: bool = False, later: bool = False,
+              past_w: bool = False) -> DpCase:
     """One chunk. `spans` (one per window, cycled) are clamped to [0, W];
     window b has lead b % 4 and is seeded when (b // 4) % 2 == 1, so every
     lead meets both."""
@@ -183,8 +190,8 @@ def make_case(name: str, seed: int, K: int, B: int, W: int, spans, *,
             rng, W, K, int(span[b]), reads=reads, err=err, p_ins=p_ins,
             max_ins=max_ins, bases=bases, p_gap=p_gap, p_late=p_late,
             cold=cold, count_max=count_max)
-        if invalid:
-            _plant_invalid(rng, key[b], cnt[b], int(span[b]))
+        if invalid or later:
+            _plant_invalid(rng, key[b], cnt[b], int(span[b]), later)
     lead = (np.arange(B) % 4).astype(np.int32)
     seeded = (np.arange(B) // 4) % 2 == 1
     last_col = span - 1
@@ -227,6 +234,8 @@ _CASES = {
     "k64_full_columns": (64, 1, 20, [20],
                          dict(reads=220, err=0.6, p_ins=0.4, max_ins=5,
                               bases=4, p_gap=0.15)),
+    "k8_later_targets": (8, 6, 72, [72, 65, 72, 30, 72, 3],
+                         dict(reads=3, err=0.1, later=True)),
 }
 CASE_NAMES = tuple(_CASES)
 
@@ -258,11 +267,42 @@ def case_tensors(case: DpCase, device="cpu") -> tuple:
                            case.last_col))
 
 
+def exact_n_slots(key: np.ndarray) -> np.ndarray:
+    """The slot bound of every column, int32 [B, W], as the host aggregation
+    would give it: the count of valid keys; where a valid key sits behind an
+    invalid one (k8_later_targets) no count of valid keys bounds the slots,
+    and the bound is the index of the column's last non-empty slot plus one.
+    With it a per-window bound and a bound shared by several windows compute
+    the same slots."""
+    K = key.shape[-1]
+    valid = key >= 0
+    count = valid.sum(-1)
+    leading = valid[..., ::-1].argmax(-1) == K - count  # valid keys come first
+    nonempty = key != -1
+    last = np.where(nonempty.any(-1), K - nonempty[..., ::-1].argmax(-1), 0)
+    return np.where(leading | (count == 0), count, last).astype(np.int32)
+
+
+def mangled_n_slots(case: DpCase) -> np.ndarray:
+    """A seeded n_slots that is wrong column by column: exact, short by one,
+    0, negative, or above K. The dynamic-K kernel takes it as given."""
+    K = case.key.shape[-1]
+    exact = exact_n_slots(case.key)
+    rng = np.random.default_rng(5000 + CASE_NAMES.index(case.name)
+                                if case.name in CASE_NAMES else 4999)
+    how = rng.integers(0, 5, size=exact.shape)
+    wrong = np.stack([exact, exact - 1, np.zeros_like(exact),
+                      -rng.integers(1, 1 << 20, size=exact.shape),
+                      K + rng.integers(1, 1 << 20, size=exact.shape)])
+    return np.take_along_axis(wrong, how[None], 0)[0].astype(np.int32)
+
+
 def check_kernels(case: DpCase, device) -> dict:
-    """consensus_dp_v2 and backtrack_packed against their plain twins on one
-    case on `device` (a CUDA device), every output bit, the walk at every
-    step limit; raises AssertionError on a difference. Returns what the case
-    held."""
+    """All four kernels against their plain twins on one case on `device` (a
+    CUDA device), every output bit: consensus_dp_v2, consensus_dp_base,
+    consensus_dp_dynk under the exact and under a mangled n_slots, and
+    backtrack_packed at every step limit; raises AssertionError on a
+    difference or a missing launch. Returns what the case held."""
     import torch
 
     from ..ops import consensus_cuda as cc
@@ -270,13 +310,26 @@ def check_kernels(case: DpCase, device) -> dict:
     B, W, K = case.key.shape
     key, cnt, cov, lead, seed8, span, last_col = case_tensors(case, device)
     before = dict(cc.LAUNCHES)
+
+    def same(what, got, want):
+        torch.cuda.synchronize(device)
+        for part, g, w in zip(("scores", "besti"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"{case.name}: {what} {part} differ from "
+                                     f"the twin's ({int((g != w).sum())} "
+                                     "elements)")
+
     sk, bk = cc.consensus_dp_v2(key, cnt, cov, lead, seed8, span)
-    sp, bp = cc.consensus_dp_plain(key, cnt, cov, lead, seed8, span)
-    torch.cuda.synchronize(device)
-    if not torch.equal(sk, sp):
-        raise AssertionError(f"{case.name}: DP scores differ from the twin's")
-    if not torch.equal(bk, bp):
-        raise AssertionError(f"{case.name}: DP besti differ from the twin's")
+    same("DP", (sk, bk), cc.consensus_dp_plain(key, cnt, cov, lead, seed8,
+                                               span))
+    same("base DP", cc.consensus_dp_base(key, cnt, cov, lead, seed8),
+         cc.consensus_dp_base_plain(key, cnt, cov, lead, seed8))
+    for what, ns in (("exact", exact_n_slots(case.key)),
+                     ("mangled", mangled_n_slots(case))):
+        ns = torch.from_numpy(ns).to(device)
+        same(f"dynamic-K DP ({what} n_slots)",
+             cc.consensus_dp_dynk(key, cnt, cov, ns, lead, seed8),
+             cc.consensus_dp_dynk_plain(key, cnt, cov, ns, lead, seed8))
     limits = step_limits(W)
     steps_max = alive_at_limit = died_at_once = 0
     for max_steps in limits:
@@ -293,10 +346,11 @@ def check_kernels(case: DpCase, device) -> dict:
         alive_at_limit += int(ok[:, max_steps + 4].sum())
         if max_steps > 1:
             died_at_once += int((n_steps == 1).sum())
-    if cc.LAUNCHES["consensus_dp_v2"] != before.get("consensus_dp_v2", 0) + 1 \
-            or cc.LAUNCHES["backtrack_packed"] != \
-            before.get("backtrack_packed", 0) + len(limits):
-        raise AssertionError(f"{case.name}: a kernel was not launched")
+    for name, n in (("consensus_dp_v2", 1), ("consensus_dp_base", 1),
+                    ("consensus_dp_dynk", 2),
+                    ("backtrack_packed", len(limits))):
+        if cc.LAUNCHES[name] != before.get(name, 0) + n:
+            raise AssertionError(f"{case.name}: {name} was not launched")
     return {"case": case.name, "K": K, "B": B, "W": W,
             "span_max": int(case.span.max()), "walk_steps_max": steps_max,
             "walks_alive_at_limit": alive_at_limit,

@@ -1,16 +1,17 @@
-"""A short probe of the two slot-parallel kernels for the first run on a card
-after a change to csrc/consensus_dp.cu, csrc/backtrack.cu or
-csrc/dp_common.cuh: seconds, where the whole smoke run takes minutes.
+"""A short probe of the four kernels for the first run on a card after a
+change to any file under csrc/: seconds, where the whole smoke run takes
+minutes.
 
     python3 -m nextpolish2_tpu_torch.utils.kernel_probe
 
-It builds the kernels and prints what `ptxas -v` says (registers, stack,
-spills), holds consensus_dp_v2 and backtrack_packed to their plain twins on
-every edge-case table of dp_cases (every failing case is reported, not only
-the first), and times both on synthetic chunks of the production shapes: a
-4-window table from dp_cases.make_case (sparse: about 1.3 live slots a
-column, as real chunks; dense: 2 at K=8, 12 at K=48) repeated to B windows,
-with the first and last 4 windows compared with the twins. One JSON line per
+It builds the kernels and prints what `ptxas -v` says of every source
+(registers, stack, spills), holds all four kernels to their plain twins on
+every edge-case table of dp_cases (dynamic-K under an exact and a mangled
+n_slots; every failing case is reported, not only the first), and times them
+on synthetic chunks of the production shapes: a 4-window table from
+dp_cases.make_case (sparse: about 1.3 live slots a column, as real chunks;
+dense: 2 at K=8, 12 at K=48) repeated to B windows, with the first and last 4
+windows compared with the twins. One JSON line per
 shape (median of 20 launches, CUDA events). Exit code 1 on any difference.
 The times are for comparing two builds of a kernel with each other; the
 figures of record come from chip_smoke.py, on real chunks.
@@ -64,7 +65,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     info = cc.build_kernels(force=True)
-    for name in ("consensus_dp", "backtrack"):
+    for name in cc.SOURCES:
         for line in info[name]["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
@@ -87,11 +88,18 @@ def main() -> int:
             sk, bk = cc.consensus_dp_v2(key, cnt, cov, lead, seed8, sp)
             ok = cc.backtrack_packed(key, cnt, cov, sk, bk, last_col, seed8,
                                      steps)
+            ns = torch.from_numpy(dp_cases.exact_n_slots(case.key)).to(dev)
+            n_slots = ns.repeat(B // 4, 1)
+            sb, bb = cc.consensus_dp_base(key, cnt, cov, lead, seed8)
+            sd, bd = cc.consensus_dp_dynk(key, cnt, cov, n_slots, lead, seed8)
             s4, b4 = cc.consensus_dp_plain(*small[:6])
             o4 = cc.backtrack_plain(*small[:3], s4, b4, small[6], small[4],
                                     steps)
+            sb4, bb4 = cc.consensus_dp_base_plain(*small[:5])
+            sd4, bd4 = cc.consensus_dp_dynk_plain(*small[:3], ns, *small[3:5])
             equal = all(torch.equal(got[sl], want) for got, want in
-                        ((sk, s4), (bk, b4), (ok, o4))
+                        ((sk, s4), (bk, b4), (ok, o4), (sb, sb4), (bb, bb4),
+                         (sd, sd4), (bd, bd4))
                         for sl in (slice(0, 4), slice(B - 4, B)))
             bad += not equal
             print(json.dumps({
@@ -102,6 +110,10 @@ def main() -> int:
                     key, cnt, cov, lead, seed8, sp)),
                 "backtrack_ms": _median_ms(lambda: cc.backtrack_packed(
                     key, cnt, cov, sk, bk, last_col, seed8, steps)),
+                "base_ms": _median_ms(lambda: cc.consensus_dp_base(
+                    key, cnt, cov, lead, seed8)),
+                "dynk_ms": _median_ms(lambda: cc.consensus_dp_dynk(
+                    key, cnt, cov, n_slots, lead, seed8)),
                 "device": torch.cuda.get_device_name(0)}), flush=True)
     return 1 if bad else 0
 

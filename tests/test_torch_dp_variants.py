@@ -401,13 +401,18 @@ def test_engine_runs_the_named_formulation(tmp_path, variant):
 def test_kernel_matches_plain_twin_on_card(variant):
     """On a CUDA card: the kernel against its plain twin, every output bit,
     on a real K=8 chunk, a K=48 chunk, the below-NEG_INF-1 table and every
-    edge-case table."""
+    edge-case table (dynamic-K: under the exact n_slots and under a mangled
+    one, which the kernel takes as given)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     dev = torch.device("cuda")
     chunks = [below_neg1_tables()[:6]]
-    chunks += [(c.key, c.cnt, c.cov, (c.key >= 0).sum(2).astype(np.int32),
-                c.lead, c.seed) for c in dp_cases.edge_cases()]
+    for c in dp_cases.edge_cases():
+        chunks.append((c.key, c.cnt, c.cov, dp_cases.exact_n_slots(c.key),
+                       c.lead, c.seed))
+        if variant == "dynk":
+            chunks.append((c.key, c.cnt, c.cov, dp_cases.mangled_n_slots(c),
+                           c.lead, c.seed))
     for K, W in [(8, 1280), (48, 2560)]:
         blob, P, Pd, Pe, _ = slice_chunk(K, 16, W)
         key, cnt, cov, lead, seed, _lc = _tables_from_blob(blob, 16, W, K, P,

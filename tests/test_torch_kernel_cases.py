@@ -70,6 +70,14 @@ def test_cases_reach_what_they_claim():
     sc, bi = (x.numpy() for x in tk.consensus_dp_v2(*case_tensors(c)[:6]))
     assert (sc < NEG_INF - 1).any()
     assert (cases["k8_130_windows"].last_col >= 40).any()
+    # an invalid same-column slot whose target sits behind it: the base
+    # formulation's pool holds the target (at NEG_INF) and reports its slot
+    c = cases["k8_later_targets"]
+    sc, bi = (x.numpy() for x in tk.consensus_dp_base(*case_tensors(c)[:5]))
+    slot = np.arange(c.key.shape[2])[None, None, :]
+    assert ((bi >= slot) & (bi > 0) & (c.key < 0)).any()
+    valid = c.key >= 0
+    assert (dp_cases.exact_n_slots(c.key) > valid.sum(-1)).any()
 
 
 @pytest.mark.parametrize("name", dp_cases.CASE_NAMES)
