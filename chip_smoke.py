@@ -23,10 +23,23 @@ line):
      under a mangled n_slots): odd K, B and W, spans of 0 and W, full
      columns, deep insertion chains, invalid slots that match a target
      before or behind them, walks cut at 0, 1 and 7 steps;
+  2b. the two k-mer kernels on E. coli's k21 table, packed on the card (its
+     planes equal to the numpy build's): kmer_lookup on 2^12..2^22 queries
+     (half present, half absent; min_count 5 and 7, which cuts the counts
+     of 6, all but repeats) and kmer_min_scores on allele batches of
+     2^12..2^24 bases cut from E. coli with Ns and substitutions, each bit
+     for bit against its twin, and up to 2^18 against the host search, with
+     times, bounds and the searchsorted yardstick; the device build's peak
+     memory against the estimate KmerTable.device_fits routes by; then both
+     KmerTable routes end to end (upload, kernel and download at every
+     size; the host search or chain up to 2^18) and their crossovers, with
+     and without the table's device build;
   3. the main path: testdata/ecoli.* (one 4.6 Mb contig, k21 table,
      min_ctg_len=1000, -t 1) through orchestrator.polish(engine="cuda");
      output must equal testdata/ecoli.truth.fa, every kernel must launch and
-     no plain twin may;
+     no plain twin may; neither k-mer kernel runs (every batch of the
+     bundled data is below the routing thresholds) and no contig is
+     segmented, here and in phases 4-7;
   4. testdata/slice.* with k21+k31 against slice.golden.fa;
   5. E. coli again with dp_variant="dynk" (dense tables shipped whole, the
      dynamic-K kernel) and the slice with dp_variant="base" (blob route):
@@ -35,15 +48,29 @@ line):
      batcher and at threads=1: 20/20 contigs equal to m20.truth.fa;
   7. batcher runs forced onto the dense fallback (requests without a CSR
      closure), under the default variant and under dynamic-K: the rows of
-     the CSR-direct run.
+     the CSR-direct run;
+  8. the segmented engine with both k-mer routes forced onto the card
+     (NP2_SEG_FORCE=1, both thresholds at 1): the slice in 5 kb segments
+     (both k-mer kernels must launch), equal to its golden;
+  9. m20 at threads=8 with every contig segmented (16 kb segments) through
+     the batcher: 20/20 equal to m20.truth.fa;
+  10. E. coli whole-contig and segmented, each polished in a child process
+     (`chip_smoke.py --rss-child MODE`) that reports its peak RSS (VmRSS
+     sampled every 10 ms): the segmented one in 1 Mb segments with both
+     k-mer routes forced onto the card (kmer_lookup must launch; E. coli
+     has no allele longer than k, so the scorer has no batch there), equal
+     to ecoli.truth.fa, its launch counts set to 0 before and read after
+     in the child like every other path's.
 Every path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of per-kernel numbers (launches per polish()
-path of phases 3-6 and their sum; phase 7's counts stay in its own lines),
-the card line, and the result line.
+path of phases 3-6 and 8-10 and their sum; phase 7's counts, and those of
+the whole-contig child, stay in their own lines), the seconds at the end of
+each phase, the card line, and the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -66,11 +93,24 @@ DP_SHAPES = [(8, 512, 1280), (8, 128, 1280), (8, 128, 2560),
              (48, 128, 2560)]   # (K, B, W)
 KERNELS = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk",
            "backtrack_packed")
+KMER_KERNELS = ("kmer_lookup", "kmer_min_scores")
 TWINS = ("consensus_dp_plain", "consensus_dp_base_plain",
-         "consensus_dp_dynk_plain", "backtrack_plain")
+         "consensus_dp_dynk_plain", "backtrack_plain", "kmer_lookup_plain",
+         "kmer_min_scores_plain")
+LOOKUP_SIZES = [1 << e for e in range(12, 23, 2)]   # queries
+SCORE_SIZES = [1 << e for e in range(12, 25, 2)]    # bases of an allele batch
+# the host routes run to this size only: past the crossovers (2^16-2^18
+# with the device build counted), where they take seconds
+HOST_MAX = 1 << 18
 NARROW_W = 1280   # the narrow width tier at the default window_len of 1024
 TIMED_LAUNCHES = 20
 PLAIN_RUNS = 3
+T_START = time.time()
+TIMELINE: dict = {}     # phase -> seconds since the start at its end
+
+
+def lap(phase: str) -> None:
+    TIMELINE[phase] = round(time.time() - T_START, 1)
 
 
 def fail(msg: str) -> None:
@@ -85,10 +125,13 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, n: int) -> float:
+def median_ms(fn, n: int, warm: bool = True) -> float:
+    """Median of n CUDA-event timings of fn, after one untimed call unless
+    the caller has just made one (warm=False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(n):
@@ -183,8 +226,10 @@ def chunk_tables(pieces: list, K: int, W: int, dev):
     return tuple(torch.cat(t) for t in zip(*parts))
 
 
-def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
-    """Kernels vs plain twins at one shape: bit-exactness, times, bounds."""
+def measure_shape(sources: list, K: int, B: int, W: int, dev,
+                  plain_runs: int = PLAIN_RUNS) -> list:
+    """Kernels vs plain twins at one shape: bit-exactness, times (the twins'
+    median of plain_runs), bounds."""
     import torch
 
     from nextpolish2_tpu_torch.ops import consensus_cuda as cc
@@ -269,7 +314,8 @@ def measure_shape(sources: list, K: int, B: int, W: int, dev) -> list:
     for name, (kern, twin) in {**dps, "backtrack_packed":
                                (bt_kern, bt_twin)}.items():
         ms[name] = median_ms(kern, TIMED_LAUNCHES)
-        plain_ms[name] = median_ms(twin, PLAIN_RUNS)
+        # every twin ran once above, for the checks
+        plain_ms[name] = median_ms(twin, plain_runs, warm=False)
 
     # DP bounds, from this chunk's data: what each function has to touch.
     # Bytes: on every column it scans (v2: below each window's span; base
@@ -365,6 +411,431 @@ def edge_case_check(dev) -> None:
           flush=True)
 
 
+@contextlib.contextmanager
+def env_set(**values):
+    """Set environment variables for the duration of a block."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def host_route(table):
+    """KmerTable.get and batch_min_kscores on the host for a block."""
+    table.use_device = False
+    try:
+        yield
+    finally:
+        table.use_device = True
+
+
+def wall_ms(fn, n: int) -> float:
+    """Median host-clock ms of n calls of fn (host arrays in, host out)."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def kmer_setup(dev) -> dict:
+    """E. coli's k21 table as the routes use it: the host table, its numpy
+    build (the JAX package's cascade, copied) and the device build that
+    KmerTable.device_table makes, which must give the same planes; and the
+    sorted composite keys on the card for the library yardstick. The device
+    build's peak memory must stay within the estimate that
+    KmerTable.device_fits routes by."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.io.yak import load_yak
+    from nextpolish2_tpu_torch.ops.kmer_table import DeviceKmerTable
+
+    table = load_yak(os.path.join(DATA, "ecoli.k21.yak"))
+    hashes = table.full_hashes()
+    t0 = time.time()
+    ref = DeviceKmerTable.build(hashes, table.counts.astype(np.int64),
+                                table.ksize)
+    numpy_s = time.time() - t0
+    table.use_device = True
+    table.device = dev
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.time()
+    tab, hi, lo, ct = table.device_table()
+    torch.cuda.synchronize()
+    device_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    slots, estimate = DeviceKmerTable.device_bytes(len(hashes))
+    if peak > estimate or slots != tab.size:
+        fail(f"device build peaked at {peak} B on {tab.size} slots; "
+             f"device_bytes estimates {estimate} B on {slots}")
+    for got, want, name in ((hi, ref.key_hi, "key_hi"),
+                            (lo, ref.key_lo, "key_lo"),
+                            (ct, ref.counts, "counts")):
+        if not torch.equal(got.cpu(), torch.from_numpy(want)):
+            fail(f"device-built {name} plane != the numpy build's")
+    if (tab.size, tab.n_probes) != (ref.size, ref.n_probes):
+        fail("device build's size or probe bound != the numpy build's")
+    # composite keys (bin << 54 | key) are sorted as unsigned 64-bit; the
+    # top bit flipped, they sort the same as signed int64
+    flip = np.uint64(1 << 63)
+    comp = torch.from_numpy((table.composite ^ flip).view(np.int64)).to(dev)
+    info = {"keys": len(hashes), "slots": tab.size, "n_probes": tab.n_probes,
+            "numpy_build_s": numpy_s, "device_build_s": device_s,
+            "device_build_peak_bytes": peak,
+            "device_build_peak_bytes_per_key": (peak - 13 * tab.size)
+            / len(hashes), "device_bytes_estimate": estimate}
+    print(json.dumps({"phase": "kmer_table", "table": "ecoli.k21.yak",
+                      **info}), flush=True)
+    return {"table": table, "tab": tab, "planes": (hi, lo, ct),
+            "hashes": hashes, "composite": comp, "flip": flip,
+            "comp_counts": torch.from_numpy(
+                table.counts.astype(np.int32)).to(dev),
+            "build_ms": device_s * 1e3, "info": info}
+
+
+def kmer_row(name: str, n: int, err: int, ms: float, plain_ms: float,
+             nbytes: float, nops: float, library_ms, **extra) -> dict:
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    src = {"kmer_lookup": ("kmer_lookup.cu",
+                           "nextpolish2_tpu/ops/kmer_table.py:120"),
+           "kmer_min_scores": ("kmer_score.cu",
+                               "nextpolish2_tpu/ops/kmer_score.py:93")}[name]
+    return {"name": name, "shape": {"N": n}, "route": "cuda",
+            "source": "nextpolish2_tpu_torch/csrc/" + src[0],
+            "replaces": src[1], "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, **extra}
+
+
+def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
+    """kmer_lookup against its twin and the host search on Q queries (half
+    present, half absent; min_count 5 keeps E. coli's counts of 6, 7 cuts
+    all but those of repeats), with its time, bound and library yardstick;
+    and the two routes of KmerTable.get end to end. Returns (kernel row,
+    route row)."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.ops.kmer_table import (kmer_lookup,
+                                                      kmer_lookup_plain,
+                                                      probe_plain)
+
+    table, tab, (hi, lo, ct) = km["table"], km["tab"], km["planes"]
+    q = np.concatenate([rng.choice(km["hashes"], Q // 2),
+                        rng.integers(0, 1 << 42, Q - Q // 2,
+                                     dtype=np.uint64)])
+    rng.shuffle(q)
+    qd = [torch.from_numpy(a).to(dev) for a in tab.query_host_arrays(q)]
+    host, host_ms = {}, None
+    if Q <= HOST_MAX:
+        with host_route(table):
+            t0 = time.perf_counter()
+            host[5] = table.get(q, 5)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            host[7] = table.get(q, 7)
+    res = {}
+    for mc in (5, 7):
+        got = kmer_lookup(hi, lo, ct, *qd, mc, tab.n_probes)
+        want = kmer_lookup_plain(hi, lo, ct, *qd, mc, tab.n_probes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"kmer_lookup != its twin at Q={Q}, min_count={mc}")
+        res[mc] = got.cpu().numpy()
+        if mc in host and not np.array_equal(res[mc], host[mc]):
+            fail(f"kmer_lookup != the host search at Q={Q}, min_count={mc}")
+    hits = int((res[5] > 0).sum())
+    cut = int((res[7] < res[5]).sum())
+    if not Q // 2 <= hits < Q or cut < hits // 2:
+        fail(f"kmer_lookup queries at Q={Q} miss their mix ({hits} hits, "
+             f"{cut} cut by min_count 7)")
+    if Q < HOST_MAX:
+        with host_route(table):
+            host_ms = wall_ms(lambda: table.get(q, 5), 3)
+    qc = torch.from_numpy(((((q & np.uint64(table.pmask)) << np.uint64(54))
+                            | (q >> np.uint64(10))) ^ km["flip"])
+                          .view(np.int64)).to(dev)
+    comp, cnts = km["composite"], km["comp_counts"]
+
+    def library():
+        idx = torch.searchsorted(comp, qc).clamp_(max=comp.shape[0] - 1)
+        return torch.where(comp[idx] == qc, cnts[idx], 0)
+
+    lib = library()
+    if not torch.equal(torch.where(lib >= 5, lib, 0).cpu(),
+                       torch.from_numpy(res[5])):
+        fail(f"searchsorted yardstick != kmer_lookup at Q={Q}")
+    probes = int(probe_plain(hi, lo, ct, *qd, tab.n_probes)[1].sum())
+    row = kmer_row(
+        "kmer_lookup", Q, 0,
+        median_ms(lambda: kmer_lookup(hi, lo, ct, *qd, 5, tab.n_probes),
+                  TIMED_LAUNCHES),
+        median_ms(lambda: kmer_lookup_plain(hi, lo, ct, *qd, 5,
+                                            tab.n_probes), PLAIN_RUNS),
+        Q * 16 + 32 * probes, 10 * Q + 8 * probes,
+        median_ms(library, TIMED_LAUNCHES), probes=probes)
+    route = {"n": Q, "host_ms": host_ms,
+             "device_ms": wall_ms(lambda: table.get_device(q, 5), 5)}
+    return row, route
+
+
+def score_batch(seq: bytes, n_bases: int, rng) -> list:
+    """Alleles of 22-199 bases cut from E. coli, joined length <= n_bases:
+    5% with an N inside, 10% with a substituted base (a k-mer the table
+    lacks, so the allele scores 0)."""
+    seqs, total = [], 0
+    while True:
+        m = int(rng.integers(22, 200))
+        if total + m + 1 > n_bases:
+            return seqs
+        at = int(rng.integers(0, len(seq) - m))
+        a = bytearray(seq[at : at + m])
+        r = rng.random()
+        if r < 0.05:
+            a[m // 2] = ord("N")
+        elif r < 0.15:
+            a[m // 3] = b"CGTA"[b"ACGT".index(a[m // 3])]
+        seqs.append(bytes(a))
+        total += m + 1
+
+
+def measure_score(km: dict, seq: bytes, n_bases: int, dev, rng,
+                  measured: set) -> tuple:
+    """kmer_min_scores against its twin and the host chain on an allele
+    batch of about n_bases; its time and bound at the kernel's padded
+    length (once per length); and the two routes of batch_min_kscores end
+    to end. Returns (kernel row or None, route row)."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.models.oracle_lq import batch_min_kscores
+    from nextpolish2_tpu_torch.ops.kmer_score import (device_min_kscores,
+                                                      end_position_hashes,
+                                                      kmer_min_scores,
+                                                      kmer_min_scores_plain,
+                                                      score_inputs)
+    from nextpolish2_tpu_torch.ops.kmer_table import _low32, probe_plain
+
+    table, tab, (hi, lo, ct) = km["table"], km["tab"], km["planes"]
+    seqs = score_batch(seq, n_bases, rng)
+    codes, starts = score_inputs(seqs)
+    cd, sd = torch.from_numpy(codes).to(dev), torch.from_numpy(starts).to(dev)
+    k = table.ksize
+    # min_count 7 cuts nearly every count of E. coli's table (6, but for
+    # repeats); the host chain runs for it below HOST_MAX bases
+    hosts, host_ms = {}, None
+    if n_bases <= HOST_MAX:
+        with host_route(table):
+            t0 = time.perf_counter()
+            hosts[5] = batch_min_kscores(seqs, table, 5)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if n_bases < HOST_MAX:
+                hosts[7] = batch_min_kscores(seqs, table, 7)
+    for mc in (5, 7):
+        got = kmer_min_scores(hi, lo, ct, cd, sd, k, mc, tab.n_probes)
+        want = kmer_min_scores_plain(hi, lo, ct, cd, sd, k, mc, tab.n_probes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"kmer_min_scores != its twin at {n_bases} bases, "
+                 f"min_count={mc}")
+        if mc == 5:
+            scores = got.cpu().numpy()[: len(seqs)]
+        if mc in hosts and not np.array_equal(got.cpu().numpy()[: len(seqs)],
+                                              hosts[mc]):
+            fail(f"kmer_min_scores != the host chain at {n_bases} bases, "
+                 f"min_count={mc}")
+    n_zero = int((scores == 0).sum())
+    if not 0 < n_zero < len(seqs):
+        fail(f"allele batch of {n_bases} bases misses its mix "
+             f"({n_zero} of {len(seqs)} score 0)")
+    if n_bases < HOST_MAX:
+        with host_route(table):
+            host_ms = wall_ms(lambda: batch_min_kscores(seqs, table, 5), 3)
+    L, S = len(codes), len(starts)
+    row = None
+    if L not in measured:
+        measured.add(L)
+        valid, h = end_position_hashes(cd, k)
+        slot = ((h >> 10) ^ (h << 7)) & (tab.size - 1)
+        probes = int(probe_plain(hi, lo, ct, (h >> 32).to(torch.int32),
+                                 _low32(h), slot, tab.n_probes)[1][valid]
+                     .sum())
+        row = kmer_row(
+            "kmer_min_scores", L, 0,
+            median_ms(lambda: kmer_min_scores(hi, lo, ct, cd, sd, k, 5,
+                                              tab.n_probes), TIMED_LAUNCHES),
+            median_ms(lambda: kmer_min_scores_plain(hi, lo, ct, cd, sd, k, 5,
+                                                    tab.n_probes),
+                      PLAIN_RUNS),
+            L + 8 * S + 32 * probes,
+            L * (4 * k + 30 + 3 * S.bit_length()) + 8 * probes, None,
+            alleles=len(seqs), probes=probes)
+    route = {"n": n_bases, "alleles": len(seqs), "kernel_length": L,
+             "host_ms": host_ms,
+             "device_ms": wall_ms(lambda: device_min_kscores(table, seqs, 5),
+                                  3)}
+    return row, route
+
+
+def crossover(routes: list, extra_ms: float = 0.0):
+    """The smallest measured size from which the device route, plus
+    extra_ms, beats the host route at every larger size (None if none)."""
+    best = None
+    for r in sorted(routes, key=lambda r: -r["n"]):
+        if r["host_ms"] is None:
+            continue
+        if r["device_ms"] + extra_ms < r["host_ms"]:
+            best = r["n"]
+        else:
+            break
+    return best
+
+
+def kmer_phase(dev) -> dict:
+    """Phase 2b: both k-mer kernels against their twins and the host
+    searches at every size, bit for bit; their times and bounds; the
+    crossover of each route (upload and download included) with and
+    without the device build of the table. Returns {(name, N): row}."""
+    import numpy as np
+
+    from nextpolish2_tpu_torch.io.fastx import read_fastx
+    from nextpolish2_tpu_torch.io.yak import KMER_DEVICE_MIN
+    from nextpolish2_tpu_torch.models.oracle_lq import KMER_SCORE_DEVICE_MIN
+
+    t0 = time.time()
+    km = kmer_setup(dev)
+    rng = np.random.default_rng(11)
+    rows, routes = {}, {"lookup": [], "score": []}
+    for Q in LOOKUP_SIZES:
+        row, route = measure_lookup(km, Q, dev, rng)
+        rows[("kmer_lookup", Q)] = row
+        routes["lookup"].append(route)
+    seq = next(iter(read_fastx(os.path.join(DATA, "ecoli.fa"))))[1]
+    measured: set = set()
+    for n in SCORE_SIZES:
+        row, route = measure_score(km, seq, n, dev, rng, measured)
+        if row is not None:
+            rows[("kmer_min_scores", row["shape"]["N"])] = row
+        routes["score"].append(route)
+    build_ms = km["build_ms"]
+    print(json.dumps({
+        "phase": "kmer_kernels_vs_plain", "seconds": time.time() - t0,
+        "table": km["info"], "rows": list(rows.values())}), flush=True)
+    print(json.dumps({
+        "phase": "kmer_route_crossover", "routes": routes,
+        "table_device_build_ms": build_ms,
+        "crossover": {
+            "lookup_queries": crossover(routes["lookup"]),
+            "lookup_queries_with_build": crossover(routes["lookup"],
+                                                   build_ms),
+            "score_bases": crossover(routes["score"]),
+            "score_bases_with_build": crossover(routes["score"], build_ms)},
+        "defaults": {"NP2_KMER_DEVICE_MIN": KMER_DEVICE_MIN,
+                     "NP2_KMER_SCORE_DEVICE_MIN": KMER_SCORE_DEVICE_MIN}}),
+        flush=True)
+    return {"km": km, "rows": rows, "seq": seq}
+
+
+def vmrss_gb() -> float:
+    """This process's resident set now (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                return int(line.split()[1]) / (1 << 20)
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+# the two E. coli children of phase 10: the phase name, the environment
+# the parent gives each, the kernels that must and must not launch there,
+# and whether the contig is segmented
+RSS_CHILDREN = {
+    "whole_contig": ("ecoli_whole_contig_child", {"NP2_NO_SEG": "1"},
+                     ("consensus_dp_v2", "backtrack_packed"),
+                     ("consensus_dp_base", "consensus_dp_dynk")
+                     + KMER_KERNELS, False),
+    "segmented": ("ecoli_segmented_device_kmer",
+                  {"NP2_SEG_FORCE": "1", "NP2_SEG_LEN": str(1 << 20),
+                   "NP2_KMER_DEVICE_MIN": "1",
+                   "NP2_KMER_SCORE_DEVICE_MIN": "1"},
+                  ("consensus_dp_v2", "backtrack_packed", "kmer_lookup"),
+                  ("consensus_dp_base", "consensus_dp_dynk"), True),
+}
+
+
+def rss_child(mode: str) -> int:
+    """Child of phase 10: E. coli through polish() on the card as one path
+    of Paths.run (counts set to 0 before, read and checked after, equal to
+    the truth) under the environment the parent set; its last line holds
+    the path's launches by shape, and the peak RSS: the largest VmRSS
+    sampled every 10 ms. (ru_maxrss does not serve: after a fork and an
+    exec it starts from the parent's high-water mark, and the chip host's
+    /proc has no VmHWM.)"""
+    sys.path.insert(0, HERE)
+    phase, _env, must, must_not, segmented = RSS_CHILDREN[mode]
+    peak = [vmrss_gb()]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], vmrss_gb())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    paths = Paths()
+    res = paths.run(phase, must, must_not,
+                    lambda: polish_check("ecoli.fa", "ecoli.bam",
+                                         ["ecoli.k21.yak"], "ecoli.truth.fa",
+                                         "cuda"), segmented=segmented)
+    done.set()
+    sampler.join()
+    peak[0] = max(peak[0], vmrss_gb())
+    print(json.dumps({"peak_rss_gb": peak[0], "wall_s": res["wall_s"],
+                      "segments": res["segments"],
+                      "by_shape": [[*key, n] for key, n
+                                   in paths.by_path[phase].items()]}))
+    return 0
+
+
+def memory_phase(paths: "Paths") -> dict:
+    """Phase 10: E. coli whole-contig and segmented, each in a child process
+    (rss_child): their peak RSS (no threshold: reported), and the segmented
+    child's launches as the path ecoli_segmented_device_kmer of `paths`."""
+    out = {}
+    for mode, (phase, extra, _m, _n, segmented) in RSS_CHILDREN.items():
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("NP2_NO_SEG", "NP2_SEG_FORCE", "NP2_SEG_LEN",
+                            "NP2_KMER_DEVICE_MIN",
+                            "NP2_KMER_SCORE_DEVICE_MIN")}
+        env.update(extra)
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--rss-child", mode], env=env,
+                           capture_output=True, text=True, timeout=300)
+        if p.returncode != 0:
+            fail(f"memory child ({mode}) exited {p.returncode}:\n"
+                 f"{p.stderr[-4000:]}")
+        lines = p.stdout.strip().splitlines()
+        print("\n".join(lines[:-1]), flush=True)   # the child's path lines
+        out[mode] = json.loads(lines[-1])
+        by_shape = {tuple(k[:-1]): k[-1] for k in out[mode].pop("by_shape")}
+        paths.shapes.update(by_shape)
+        if segmented:
+            paths.by_path[phase] = by_shape
+    print(json.dumps({"phase": "memory_ecoli", **out}), flush=True)
+    return out
+
+
 def polish_check(fa: str, bam: str, yaks: list, truth: str, device,
                  threads: int = 1, dp_variant=None) -> dict:
     """polish() on testdata files; every contig must equal `truth`."""
@@ -401,6 +872,13 @@ def polish_check(fa: str, bam: str, yaks: list, truth: str, device,
             "dense_reasons": stats.dense_reasons}
 
 
+def shape_label(key: tuple) -> str:
+    """(name, K, B, W) -> name@KxBxW; (name, N) -> name@N."""
+    if len(key) == 4:
+        return "{}@K{}xB{}xW{}".format(*key)
+    return "{}@N{}".format(*key)
+
+
 class Paths:
     """Drives one path at a time with the launch counts at 0 before it,
     reads them after it, checks which kernels ran, and keeps each path's
@@ -412,7 +890,7 @@ class Paths:
         self.shapes: set = set()    # every (name, K, B, W) any path launched
 
     def run(self, phase: str, must_launch: tuple, must_not: tuple, fn,
-            keep: bool = True):
+            keep: bool = True, segmented: bool = False):
         from nextpolish2_tpu_torch.ops import consensus_cuda as cc
         from nextpolish2_tpu_torch.pipeline import engine
         from nextpolish2_tpu_torch.utils import timing
@@ -434,6 +912,9 @@ class Paths:
         for name in must_not + TWINS:
             if launches.get(name, 0) != 0:
                 fail(f"{phase}: {name} ran ({launches[name]} times)")
+        if (engine.STATS["segmented_contigs"] > 0) != segmented:
+            fail(f"{phase}: {engine.STATS['segmented_contigs']} contigs "
+                 f"took the segmented engine")
         self.shapes.update(by_shape)
         if keep:
             self.by_path[phase] = by_shape
@@ -441,6 +922,8 @@ class Paths:
         res = dict(res or {})
         res.update({"windows": engine.STATS["windows"],
                     "chunks": engine.STATS["chunks"],
+                    "segmented_contigs": engine.STATS["segmented_contigs"],
+                    "segments": engine.STATS["segments"],
                     "host_fallback_windows":
                         engine.STATS["host_fallback_windows"],
                     "oracle_fallback_contigs":
@@ -450,8 +933,7 @@ class Paths:
         if "wall_s" in res:
             res["kernel_idle_share"] = 1 - device_ms / 1e3 / res["wall_s"]
         print(json.dumps({"phase": phase, **res,
-                          "by_shape": {f"{n}@K{k}xB{b}xW{w}": c
-                                       for (n, k, b, w), c
+                          "by_shape": {shape_label(key): c for key, c
                                        in sorted(by_shape.items())}}),
               flush=True)
         stages = timing.snapshot()
@@ -520,6 +1002,11 @@ def dense_fallback_check(src: dict, dev, dp_variant: str, n: int) -> dict:
             "csr_batches": stats[True].batches}
 
 
+def with_env(values: dict, fn, *args, **kw):
+    with env_set(**values):
+        return fn(*args, **kw)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "nextpolish2_tpu_torch")) or \
             not os.path.isdir(DATA):
@@ -527,6 +1014,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -568,6 +1056,7 @@ def main() -> int:
                             info[name]["log"])
         if not frames or any(int(x) for f in frames for x in f):
             fail(f"{name}: ptxas reports a stack frame or spills: {frames}")
+    lap("1_build")
 
     # phase 2: kernels against their plain twins at the production shapes,
     # on E. coli windows; the slice adds the only K=48-tier window in the
@@ -587,42 +1076,53 @@ def main() -> int:
         for r in measure_shape(sources, K, B, W, dev):
             rows[(r["name"], K, B, W)] = r
     edge_case_check(dev)
+    lap("2_dp_kernels")
 
-    # phase 3: the main path
+    # phase 2b: the two k-mer kernels on E. coli's table
+    kmer = kmer_phase(dev)
+    rows.update(kmer["rows"])
+    lap("2b_kmer_kernels")
+
+    # phase 3: the main path (the k-mer routes stay below their thresholds
+    # on every bundled contig, and no contig is long enough to segment)
     paths = Paths()
     dp_all = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk")
+    off = KMER_KERNELS
     paths.run(
         "main_path_ecoli", ("consensus_dp_v2", "backtrack_packed"),
-        ("consensus_dp_base", "consensus_dp_dynk"),
+        ("consensus_dp_base", "consensus_dp_dynk") + off,
         lambda: polish_check("ecoli.fa", "ecoli.bam", ["ecoli.k21.yak"],
                              "ecoli.truth.fa", "cuda"))
     if not native.available():
         fail("native host library not loaded on the main path")
+    lap("3_main_path")
 
     # phase 4: the slice with two k-mer tables
     paths.run(
         "slice", ("consensus_dp_v2", "backtrack_packed"),
-        ("consensus_dp_base", "consensus_dp_dynk"),
+        ("consensus_dp_base", "consensus_dp_dynk") + off,
         lambda: polish_check("slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
                              "slice.golden.fa", "cuda"))
+    lap("4_slice")
 
     # phase 5: the other two DP formulations on their routes
     paths.run(
         "ecoli_dynk_dense_route", ("consensus_dp_dynk", "backtrack_packed"),
-        ("consensus_dp_v2", "consensus_dp_base"),
+        ("consensus_dp_v2", "consensus_dp_base") + off,
         lambda: polish_check("ecoli.fa", "ecoli.bam", ["ecoli.k21.yak"],
                              "ecoli.truth.fa", "cuda", dp_variant="dynk"))
     paths.run(
         "slice_base_blob_route", ("consensus_dp_base", "backtrack_packed"),
-        ("consensus_dp_v2", "consensus_dp_dynk"),
+        ("consensus_dp_v2", "consensus_dp_dynk") + off,
         lambda: polish_check("slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
                              "slice.golden.fa", "cuda", dp_variant="base"))
+    lap("5_dynk_base")
 
     # phase 6: 20 contigs through the cross-contig batcher, then one by one
     for threads in (8, 1):
         res = paths.run(
             f"m20_t{threads}", ("consensus_dp_v2", "backtrack_packed"),
-            ("consensus_dp_base", "consensus_dp_dynk"),
+            ("consensus_dp_base", "consensus_dp_dynk") + off,
             lambda: polish_check("m20.fa", "m20.bam", ["m20.k21.yak"],
                                  "m20.truth.fa", "cuda", threads=threads))
         if res["contigs"] != 20:
@@ -631,6 +1131,7 @@ def main() -> int:
                             or res["csr_batches"] != res["batches"]):
             fail(f"m20 -t {threads}: {res['csr_batches']}/{res['batches']} "
                  "batches were CSR-direct")
+    lap("6_m20")
 
     # phase 7: the batcher's dense fallback on the card
     paths.run(
@@ -643,21 +1144,67 @@ def main() -> int:
         ("consensus_dp_base",),
         lambda: dense_fallback_check(sources[0], dev, "dynk", 640),
         keep=False)
+    lap("7_dense_fallback")
 
-    # any other shape a path launched gets measured too
-    for (name, K, B, W) in sorted(paths.shapes):
-        if (name, K, B, W) not in rows:
-            for r in measure_shape(sources, K, B, W, dev):
-                rows[(r["name"], K, B, W)] = r
+    # phase 8: the segmented engine on the slice (5 kb segments) with both
+    # k-mer routes forced onto the card: the only bundled contig whose
+    # alleles reach the scorer (E. coli's segmented run is phase 10's)
+    paths.run(
+        "slice_segmented_device_kmer",
+        ("consensus_dp_v2", "backtrack_packed") + KMER_KERNELS,
+        ("consensus_dp_base", "consensus_dp_dynk"),
+        lambda: with_env({"NP2_SEG_FORCE": 1, "NP2_SEG_LEN": 5000,
+                          "NP2_KMER_DEVICE_MIN": 1,
+                          "NP2_KMER_SCORE_DEVICE_MIN": 1}, polish_check,
+                         "slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
+                         "slice.golden.fa", "cuda"),
+        segmented=True)
+    lap("8_slice_segmented")
+
+    # phase 9: 20 contigs, each segmented, through the batcher at -t 8
+    res = paths.run(
+        "m20_t8_segmented", ("consensus_dp_v2", "backtrack_packed"),
+        ("consensus_dp_base", "consensus_dp_dynk") + off,
+        lambda: with_env({"NP2_SEG_FORCE": 1, "NP2_SEG_LEN": 16384},
+                         polish_check, "m20.fa", "m20.bam", ["m20.k21.yak"],
+                         "m20.truth.fa", "cuda", threads=8),
+        segmented=True)
+    if res["contigs"] != 20 or res["segmented_contigs"] != 20 or \
+            res["batches"] == 0:
+        fail(f"m20 segmented -t 8: {res['segmented_contigs']} of "
+             f"{res['contigs']} contigs segmented, {res['batches']} batches")
+    lap("9_m20_segmented")
+
+    # phase 10: E. coli whole-contig and segmented (device k-mer routes
+    # forced), each in a child process, with their peak RSS
+    memory_phase(paths)
+    lap("10_ecoli_children")
+
+    # any other shape a path launched gets measured too (the twins once)
+    for key in sorted(paths.shapes):
+        if key in rows:
+            continue
+        if len(key) == 4:
+            for r in measure_shape(sources, *key[1:], dev, plain_runs=1):
+                rows[(r["name"], *key[1:])] = r
+        elif key[0] == "kmer_lookup":
+            rows[key] = measure_lookup(kmer["km"], key[1], dev,
+                                       np.random.default_rng(12))[0]
+        else:
+            row = measure_score(kmer["km"], kmer["seq"], key[1], dev,
+                                np.random.default_rng(12), set())[0]
+            rows[("kmer_min_scores", row["shape"]["N"])] = row
     # launches: per polish() path, and their sum
     for key, r in rows.items():
         r["launches_by_path"] = {phase: by_shape[key] for phase, by_shape
                                  in paths.by_path.items() if key in by_shape}
         r["launches"] = sum(r["launches_by_path"].values())
-    for name in dp_all + ("backtrack_packed",):
+    for name in dp_all + ("backtrack_packed",) + KMER_KERNELS:
         if not any(r["launches"] for k, r in rows.items() if k[0] == name):
             fail(f"{name} was launched on no path")
+    lap("11_other_shapes")
 
+    print(json.dumps({"phase": "timeline", "seconds_at_end": TIMELINE}))
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -667,4 +1214,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rss-child"]:
+        raise SystemExit(rss_child(sys.argv[2]))
     raise SystemExit(main())

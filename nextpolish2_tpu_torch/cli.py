@@ -169,9 +169,11 @@ def main(argv=None) -> int:
     if args.timing:
         timing.report()
         from .ops.consensus_cuda import LAUNCHES
+        from .pipeline.engine import STATS
 
         print(f"[np2 timing] kernel launches: {dict(LAUNCHES)}",
               file=sys.stderr)
+        print(f"[np2 timing] engine: {dict(STATS)}", file=sys.stderr)
     print(resource_str(__version__), file=sys.stderr)
     print(f"Contigs: {stats.contigs} ({stats.polished} polished, "
           f"{stats.passthrough} passthrough); bases {stats.in_bases} -> "

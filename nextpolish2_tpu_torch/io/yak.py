@@ -11,25 +11,41 @@ V >> 10 (counter bits overlay the low hash bits). With the stock pre == 10 the p
 Design departure from the reference: the reference re-streams the .yak file from disk
 for every query batch (kmer.rs:132-170 `retrieve_kmers`) because resident RAM was its
 constraint. We load each table once into flat sorted arrays (bin offsets + sorted keys
-+ counts) for O(log n) vectorized lookups. This package keeps the host lookup
-only; the device-resident table of the JAX package is not ported yet.
++ counts) for O(log n) vectorized lookups. With use_device set, large batches go
+to a copy of the table packed once into a device-resident open-addressing table
+(ops/kmer_table.py) and probed there by a CUDA kernel.
 """
 
 from __future__ import annotations
 
+import os
 import struct
+import threading
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..utils.seqcodes import seq_to_codes
+from ..utils.timing import stage
 
 YAK_MAGIC = b"YAK\x02"
 YAK_COUNTER_BITS = 10
 YAK_MAX_COUNT = (1 << YAK_COUNTER_BITS) - 1
 INVALID_KMER = np.uint64(0xFFFFFFFFFFFFFFFF)
 
+# KmerTable.get sends a batch of at least this many queries to a device
+# table that fits its card (NP2_KMER_DEVICE_MIN overrides). chip_smoke.py's
+# k-mer phase on an H100 (PERF.md): the device route, upload and download
+# included, beats the host composite search from the smallest batch
+# measured (2^12 queries); with the one-time device build of E. coli's 4.6M
+# keys added it breaks even from 2^16 to 2^18, as the host search's speed
+# varies between runs. On a 62M-key table, whose host search is slower a
+# query, its two batches a run repay their build (the build and the device
+# lookups 0.43 s against 1.1-1.7 s of host search)
+KMER_DEVICE_MIN = 1 << 16
+
 _U64 = np.uint64
+_device_tab_lock = threading.Lock()  # one build and upload per table
 
 
 def yak_hash64(key: np.ndarray | int, mask: int) -> np.ndarray | int:
@@ -159,6 +175,14 @@ class KmerTable:
     # composite (bin << 54 | key) is globally sorted when pre + 54 <= 64, enabling
     # one vectorized searchsorted for the whole batch (key = hash >> 10 is <= 54 bits)
     composite: np.ndarray | None = field(default=None, repr=False)
+    # set True (the orchestrator does on a CUDA device) to route large
+    # batches through the device-resident table on `device` (None: cuda)
+    use_device: bool = False
+    device: object = None
+    _device_tab: tuple | None = field(default=None, init=False, repr=False,
+                                      compare=False)
+    _device_fits: bool | None = field(default=None, init=False, repr=False,
+                                      compare=False)
 
     def __post_init__(self):
         if self.composite is None and self.pre + 54 <= 64 and len(self.keys):
@@ -190,14 +214,93 @@ class KmerTable:
             return yak_hash64(kmers, self.kmask)
         return np.asarray(kmers, dtype=_U64)
 
+    def full_hashes(self) -> np.ndarray:
+        """Reconstruct full hash values V from (bin, key): exact for pre <= 10
+        (the stored identity; kmer.rs:96-124)."""
+        sizes = np.diff(self.bin_off)
+        bins = np.repeat(np.arange(1 << self.pre, dtype=_U64), sizes)
+        return (self.keys << _U64(YAK_COUNTER_BITS)) | bins
+
+    def device_fits(self) -> bool:
+        """Whether device_table can pack this table on its device: at most
+        MAX_SLOTS slots (the kernels' 32-bit slot arithmetic) and, on a CUDA
+        device, the build's peak (DeviceKmerTable.device_bytes) within half
+        of the memory the card has free, the rest staying for the chunk
+        program. Decided once per table, before anything is built; a table
+        that does not fit (a human short-read table of 2-4 G keys) stays on
+        the host route."""
+        import torch
+
+        from ..ops.kmer_table import MAX_SLOTS, DeviceKmerTable
+        from ..utils.torchcfg import resolve_device
+
+        with _device_tab_lock:
+            if self._device_fits is None:
+                dev = resolve_device(self.device)
+                slots, need = DeviceKmerTable.device_bytes(len(self.keys))
+                fits = slots <= MAX_SLOTS
+                if fits and dev.type == "cuda":
+                    free = (torch.cuda.mem_get_info(dev)[0]
+                            + torch.cuda.memory_reserved(dev)
+                            - torch.cuda.memory_allocated(dev))
+                    fits = need <= free // 2
+                self._device_fits = fits
+        return self._device_fits
+
+    def device_route(self, n: int, env: str, default: int) -> bool:
+        """Whether a batch of n queries (or bases) goes to the device table:
+        use_device set, at least int(os.environ.get(env, default)) items,
+        and a table that fits on its device (device_fits). Both routes are
+        exact: this moves time, never output."""
+        return (self.use_device and self.pre <= YAK_COUNTER_BITS
+                and n >= int(os.environ.get(env, str(default)))
+                and self.device_fits())
+
+    def device_table(self) -> tuple:
+        """The table packed into an open-addressing DeviceKmerTable whose
+        planes are resident on `device`: (DeviceKmerTable, key_hi, key_lo,
+        counts). Packed on that device (DeviceKmerTable.build_torch: the
+        numpy build's planes, bit for bit) once, under a module lock, so that
+        concurrent contig threads do not both pay for it."""
+        from ..ops.kmer_table import DeviceKmerTable
+        from ..utils.torchcfg import resolve_device
+
+        with _device_tab_lock:
+            if self._device_tab is None:
+                with stage("kmer_table_build"):
+                    tab = DeviceKmerTable.build_torch(
+                        self.full_hashes(), self.counts, self.ksize,
+                        resolve_device(self.device))
+                self._device_tab = (tab, tab.key_hi, tab.key_lo, tab.counts)
+        return self._device_tab
+
+    def get_device(self, hashes: np.ndarray, min_count: int) -> np.ndarray:
+        """Batched lookup in the device table (ops/kmer_table.kmer_lookup):
+        the same counts as the host search."""
+        import torch
+
+        from ..ops.kmer_table import kmer_lookup
+
+        tab, hi, lo, ct = self.device_table()
+        q = [torch.from_numpy(a).to(hi.device)
+             for a in tab.query_host_arrays(hashes)]
+        out = kmer_lookup(hi, lo, ct, *q, int(min_count), tab.n_probes)
+        return out.cpu().numpy().astype(np.uint16)
+
     def get(self, hashes: np.ndarray, min_count: int = 0) -> np.ndarray:
         """Vectorized lookup: hash V -> stored count, 0 if absent or count < min_count.
 
         Combines the reference's retrieve_kmers min-count filter (kmer.rs:160-161)
         with the get (kmer.rs:123-125): a present k-mer with count < min_count
-        behaves as absent (count 0).
+        behaves as absent (count 0). A batch that device_route sends to the
+        card (from NP2_KMER_DEVICE_MIN queries, default KMER_DEVICE_MIN) is
+        looked up in the device table instead; both routes are exact.
         """
         hashes = np.atleast_1d(np.asarray(hashes, dtype=_U64))
+        if self.device_route(len(hashes), "NP2_KMER_DEVICE_MIN",
+                             KMER_DEVICE_MIN):
+            with stage("kmer_get_device"):
+                return self.get_device(hashes, min_count)
         if len(self.keys) == 0:
             return np.zeros(len(hashes), dtype=np.uint16)
         keys = hashes >> _U64(YAK_COUNTER_BITS)

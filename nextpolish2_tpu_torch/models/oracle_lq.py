@@ -32,6 +32,14 @@ L_RECH = 0b0010_0000
 
 INVALID = int(INVALID_KMER)
 
+# batch_min_kscores scores a batch of at least this many bases on the device
+# (NP2_KMER_SCORE_DEVICE_MIN overrides) when its table has use_device set and
+# fits the card. chip_smoke.py's k-mer phase on an H100 (PERF.md): the fused
+# device scorer, upload and download included, beats the host chain from
+# the smallest batch measured (2^12 bases); with the one-time device build
+# of E. coli's table added it breaks even from 2^16 to 2^18
+KMER_SCORE_DEVICE_MIN = 1 << 16
+
 
 @dataclass(slots=True)
 class LqSeq:
@@ -241,6 +249,19 @@ def batch_min_kscores(seqs: List[bytes], table: KmerTable,
     from ..utils.seqcodes import seq_to_codes
 
     from ..utils.timing import stage
+
+    # device route: the WHOLE chain (rolling k-mer -> yak hash -> probe ->
+    # per-allele min) in one kernel launch from the raw bytes
+    # (ops/kmer_score.py), for a batch of at least NP2_KMER_SCORE_DEVICE_MIN
+    # bases (default KMER_SCORE_DEVICE_MIN); both routes are exact
+    if table.ksize < 32 and table.device_route(
+            sum(len(s) for s in seqs), "NP2_KMER_SCORE_DEVICE_MIN",
+            KMER_SCORE_DEVICE_MIN):
+        from ..ops.kmer_score import device_min_kscores
+
+        with stage("kscore_device"):
+            out = device_min_kscores(table, seqs, min_kmer_count)
+        return out.astype(np.int64)
 
     with stage("kscore_roll"):
         joined = b"N".join(seqs)

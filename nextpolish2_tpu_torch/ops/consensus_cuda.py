@@ -1,5 +1,7 @@
-"""Hand-written CUDA kernels of the chunk program, their loader, and their
-plain PyTorch twins.
+"""Hand-written CUDA kernels of the chunk program, their plain PyTorch
+twins, and the loader and launch counters of every kernel of the package
+(the k-mer table kernels' wrappers live in ops/kmer_table.py and
+ops/kmer_score.py).
 
 consensus_dp_v2 replaces the Pallas kernel
 nextpolish2_tpu/ops/consensus_pallas.py::_dp_kernel_v2 (span-bounded,
@@ -21,7 +23,7 @@ seconds.
 
 Dispatch: a wrapper given CPU tensors runs the plain twin; given CUDA
 tensors it launches the kernel or raises. It never falls back. Every launch
-adds one to LAUNCHES[name] (and SHAPE_LAUNCHES[(name, K, B, W)]), so a run
+adds one to LAUNCHES[name] (and SHAPE_LAUNCHES[(name, *shape)]), so a run
 can prove which path it took. The counters are shared by every thread of the
 process and are updated under one lock.
 """
@@ -48,12 +50,16 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {"consensus_dp": "consensus_dp.cu",
            "consensus_dp_base": "consensus_dp_base.cu",
            "consensus_dp_dynk": "consensus_dp_dynk.cu",
-           "backtrack": "backtrack.cu"}
-HEADERS = ("dp_common.cuh",)  # a change to one rebuilds every source
+           "backtrack": "backtrack.cu",
+           "kmer_lookup": "kmer_lookup.cu",    # wrapper: ops/kmer_table.py
+           "kmer_score": "kmer_score.cu"}      # wrapper: ops/kmer_score.py
+# a change to one rebuilds every source
+HEADERS = ("dp_common.cuh", "kmer_common.cuh")
 # C entry point np2t_<name>: (pointer arguments, int arguments) before the
 # stream pointer
 _ARGS = {"consensus_dp": (8, 3), "consensus_dp_base": (7, 3),
-         "consensus_dp_dynk": (8, 3), "backtrack": (8, 4)}
+         "consensus_dp_dynk": (8, 3), "backtrack": (8, 4),
+         "kmer_lookup": (7, 4), "kmer_score": (6, 6)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 K_MAX = 64  # the kernels' slot bound (uint64 slot masks, two slots a lane)
@@ -104,9 +110,10 @@ def launch_ms() -> dict:
     return dict(out)
 
 
-def _launch(name: str, K: int, B: int, W: int, fn, *args) -> None:
+def _launch(name: str, shape, fn, *args) -> None:
     """Launch through the C entry point `fn`, raise on a refused launch,
-    count it."""
+    count it, per shape too: (K, B, W) for the chunk kernels, the
+    power-of-two bucket of the work size (floor 4096) for the k-mer ones."""
     if _timing:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -118,7 +125,7 @@ def _launch(name: str, K: int, B: int, W: int, fn, *args) -> None:
     if _timing:
         e1.record()
         events = (e0, e1)
-    _count(name, (K, B, W), events)
+    _count(name, shape, events)
 
 
 def _nvcc() -> str:
@@ -243,7 +250,7 @@ def consensus_dp_v2(key, cnt, cov, lead, seed, span):
     scores, besti = _dp_outputs(B, W, K, dev)
     fn = _lib("consensus_dp").np2t_consensus_dp
     with torch.cuda.device(dev):
-        _launch("consensus_dp_v2", K, B, W, fn, key.data_ptr(),
+        _launch("consensus_dp_v2", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), lead.data_ptr(),
                 seed.data_ptr(), span.data_ptr(), scores.data_ptr(),
                 besti.data_ptr(), B, W, K,
@@ -364,7 +371,7 @@ def consensus_dp_base(key, cnt, cov, lead, seed):
     scores, besti = _dp_outputs(B, W, K, dev)
     fn = _lib("consensus_dp_base").np2t_consensus_dp_base
     with torch.cuda.device(dev):
-        _launch("consensus_dp_base", K, B, W, fn, key.data_ptr(),
+        _launch("consensus_dp_base", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), lead.data_ptr(),
                 seed.data_ptr(), scores.data_ptr(), besti.data_ptr(),
                 B, W, K, torch.cuda.current_stream(dev).cuda_stream)
@@ -384,7 +391,7 @@ def consensus_dp_dynk(key, cnt, cov, n_slots, lead, seed):
     scores, besti = _dp_outputs(B, W, K, dev)
     fn = _lib("consensus_dp_dynk").np2t_consensus_dp_dynk
     with torch.cuda.device(dev):
-        _launch("consensus_dp_dynk", K, B, W, fn, key.data_ptr(),
+        _launch("consensus_dp_dynk", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), n_slots.data_ptr(),
                 lead.data_ptr(), seed.data_ptr(), scores.data_ptr(),
                 besti.data_ptr(), B, W, K,
@@ -542,7 +549,7 @@ def backtrack_packed(key, cnt, cov, scores, besti, last_col, seed,
     out = torch.empty((B, max_steps + 8), dtype=torch.int16, device=dev)
     fn = _lib("backtrack").np2t_backtrack
     with torch.cuda.device(dev):
-        _launch("backtrack_packed", K, B, W, fn, key.data_ptr(),
+        _launch("backtrack_packed", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), scores.data_ptr(),
                 besti.data_ptr(), last_col.data_ptr(), seed.data_ptr(),
                 out.data_ptr(), B, W, K, int(max_steps),

@@ -1,0 +1,276 @@
+"""Device-resident k-mer count table: open addressing on the card, batched
+lookups.
+
+Each yak table (io/yak.py) is packed ONCE into a power-of-two
+open-addressing table of three int32 planes (key_hi = hash >> 32, key_lo =
+hash & 0xFFFFFFFF bit-cast, counts), the layout of the JAX package's
+ops/kmer_table.py and bit for bit its build. DeviceKmerTable.build is the
+numpy build, copied; build_torch is the same cascade in torch ops, so that a
+table bound for the card is packed there.
+
+kmer_lookup replaces the jitted XLA function lookup / lookup_jit
+(nextpolish2_tpu/ops/kmer_table.py:120-154). For CUDA tensors it launches
+the hand-written kernel csrc/kmer_lookup.cu (one thread per query, stopping
+at the hit or the first empty slot, which is exact: csrc/kmer_common.cuh);
+for CPU tensors it runs the plain twin kmer_lookup_plain. It never falls
+back, and every launch adds one to consensus_cuda.LAUNCHES["kmer_lookup"].
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Union
+
+import numpy as np
+import torch
+
+MAX_PROBES = 32
+# Probe scheme: DOUBLE HASHING -- probe i lands at (slot + i*stride) & mask
+# with stride = ((hash >> 10) | 1) & mask (odd, so the cycle covers every
+# slot of the power-of-two table); the longest chain is ~log2(n) at load
+# 0.5. The stride is derived from the query planes inside the lookup, so
+# call sites ship only (hi, lo, slot).
+# Empty sentinel = hash 0xFFFFFFFF_FFFFFFFE. For k < 32 real hashes are
+# < 2^(2k) and can never collide; for k >= 32 a collision has probability
+# 2^-64 per key.
+EMPTY_HI = np.int32(-1)          # 0xFFFFFFFF
+EMPTY_LO = np.int32(-2)          # 0xFFFFFFFE
+# the kernels take the slot mask as a 32-bit int and start slots as int32
+MAX_SLOTS = 1 << 31
+# build_torch's device peak besides the planes and the occupancy (13 B a
+# slot): per key, the int64 hashes, slots, order, pending keys, slots and
+# strides and the int32 counts it keeps, and one placement round's
+# temporaries (sorts included); chip_smoke.py measures it (PERF.md)
+BUILD_BYTES_PER_KEY = 192
+
+Planes = Union[np.ndarray, torch.Tensor]
+
+
+@dataclass
+class DeviceKmerTable:
+    """A packed table: numpy planes (build) or torch planes on the device
+    they were packed on (build_torch)."""
+
+    ksize: int
+    size: int            # power of two
+    key_hi: Planes       # i32 [size]  (hash >> 32)
+    key_lo: Planes       # i32 [size]  (hash & 0xFFFFFFFF, bit-cast)
+    counts: Planes       # i32 [size]
+    kmask: int
+    # longest probe chain used at build time: lookups stop there (probes
+    # past it can never hit)
+    n_probes: int = MAX_PROBES
+
+    @staticmethod
+    def _first_size(n: int, load_factor: float) -> int:
+        return 1 << max(10, int(np.ceil(np.log2(max(n, 1) / load_factor))))
+
+    @staticmethod
+    def _kmask(ksize: int) -> int:
+        return (1 << (2 * ksize)) - 1 if ksize < 32 else (1 << 64) - 1
+
+    @classmethod
+    def device_bytes(cls, n_keys: int,
+                     load_factor: float = 0.5) -> tuple[int, int]:
+        """(slots, peak device bytes) of build_torch on n_keys keys, at the
+        first size it tries."""
+        size = cls._first_size(n_keys, load_factor)
+        return size, 13 * size + BUILD_BYTES_PER_KEY * n_keys
+
+    @classmethod
+    def build(cls, hashes: np.ndarray, counts: np.ndarray, ksize: int,
+              load_factor: float = 0.5) -> "DeviceKmerTable":
+        """Pack (hash, count) pairs; grows until every key probes <= MAX_PROBES."""
+        hashes = np.asarray(hashes, dtype=np.uint64)
+        counts = np.asarray(counts, dtype=np.int32)
+        size = cls._first_size(len(hashes), load_factor)
+        while True:
+            ok, hi, lo, cnt, n_probes = cls._try_pack(hashes, counts, size)
+            if ok:
+                break
+            size *= 2
+        return cls(ksize=ksize, size=size, key_hi=hi, key_lo=lo, counts=cnt,
+                   kmask=cls._kmask(ksize), n_probes=n_probes)
+
+    @staticmethod
+    def _try_pack(hashes, counts, size):
+        mask = np.uint64(size - 1)
+        hi = np.full(size, EMPTY_HI, dtype=np.int32)
+        lo = np.full(size, EMPTY_LO, dtype=np.int32)
+        cnt = np.zeros(size, dtype=np.int32)
+        # mix so slot bits differ from the yak prefix-bin bits
+        slot = ((hashes >> np.uint64(10)) ^ (hashes << np.uint64(7))) & mask
+        order = np.argsort(slot, kind="stable")
+        occupied = np.zeros(size, dtype=bool)
+        pending = hashes[order]
+        pcnts = counts[order]
+        pslots = slot[order].astype(np.int64)
+        # double-hashing stride (see MAX_PROBES comment); odd -> full cycle
+        pstride = (((hashes[order] >> np.uint64(10)) | np.uint64(1))
+                   & mask).astype(np.int64)
+        # vectorized cascade: place keys; collisions retry at +stride
+        for probe in range(MAX_PROBES):
+            if len(pending) == 0:
+                return True, hi, lo, cnt, probe
+            s = (pslots + probe * pstride) & (size - 1)
+            # first pending key per free slot wins this round
+            free = ~occupied[s]
+            idx_sorted = np.argsort(s[free], kind="stable")
+            sf = s[free][idx_sorted]
+            first = np.ones(len(sf), dtype=bool)
+            first[1:] = sf[1:] != sf[:-1]
+            winners_local = np.nonzero(free)[0][idx_sorted[first]]
+            win_slots = s[winners_local]
+            occupied[win_slots] = True
+            h = pending[winners_local]
+            hi[win_slots] = (h >> np.uint64(32)).astype(np.uint32).view(np.int32)
+            lo[win_slots] = (h & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+            cnt[win_slots] = pcnts[winners_local]
+            keep = np.ones(len(pending), dtype=bool)
+            keep[winners_local] = False
+            pending, pcnts = pending[keep], pcnts[keep]
+            pslots, pstride = pslots[keep], pstride[keep]
+        return len(pending) == 0, hi, lo, cnt, MAX_PROBES
+
+    @classmethod
+    def build_torch(cls, hashes: np.ndarray, counts: np.ndarray, ksize: int,
+                    device, load_factor: float = 0.5) -> "DeviceKmerTable":
+        """build, as torch ops on `device`: the same cascade, so the same
+        planes bit for bit (a stable sort is one permutation in numpy and in
+        torch), left on the device."""
+        h = torch.from_numpy(np.ascontiguousarray(
+            hashes, dtype=np.uint64).view(np.int64)).to(device)
+        c = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32)) \
+            .to(device)
+        size = cls._first_size(len(hashes), load_factor)
+        while True:
+            ok, hi, lo, cnt, n_probes = cls._try_pack_torch(h, c, size)
+            if ok:
+                break
+            size *= 2
+        return cls(ksize=ksize, size=size, key_hi=hi, key_lo=lo, counts=cnt,
+                   kmask=cls._kmask(ksize), n_probes=n_probes)
+
+    @staticmethod
+    def _try_pack_torch(h: torch.Tensor, counts: torch.Tensor, size: int):
+        """_try_pack on int64 bit patterns of the u64 hashes. Only bits
+        below log2(size) <= 62 of each shift survive the mask, so torch's
+        arithmetic right shift gives the same slots and strides."""
+        dev = h.device
+        mask = size - 1
+        hi = torch.full((size,), int(EMPTY_HI), dtype=torch.int32, device=dev)
+        lo = torch.full((size,), int(EMPTY_LO), dtype=torch.int32, device=dev)
+        cnt = torch.zeros(size, dtype=torch.int32, device=dev)
+        slot = ((h >> 10) ^ (h << 7)) & mask
+        order = torch.sort(slot, stable=True).indices
+        occupied = torch.zeros(size, dtype=torch.bool, device=dev)
+        pending = h[order]
+        pcnts = counts[order]
+        pslots = slot[order]
+        pstride = ((pending >> 10) | 1) & mask
+        for probe in range(MAX_PROBES):
+            if pending.numel() == 0:
+                return True, hi, lo, cnt, probe
+            s = (pslots + probe * pstride) & mask
+            free_idx = torch.nonzero(~occupied[s]).squeeze(1)
+            sf, idx_sorted = torch.sort(s[free_idx], stable=True)
+            first = torch.ones(sf.numel(), dtype=torch.bool, device=dev)
+            first[1:] = sf[1:] != sf[:-1]
+            winners = free_idx[idx_sorted[first]]
+            win_slots = s[winners]
+            occupied[win_slots] = True
+            w = pending[winners]
+            hi[win_slots] = (w >> 32).to(torch.int32)
+            lo[win_slots] = _low32(w)
+            cnt[win_slots] = pcnts[winners]
+            keep = torch.ones(pending.numel(), dtype=torch.bool, device=dev)
+            keep[winners] = False
+            pending, pcnts = pending[keep], pcnts[keep]
+            pslots, pstride = pslots[keep], pstride[keep]
+        return pending.numel() == 0, hi, lo, cnt, MAX_PROBES
+
+    def query_host_arrays(self, hashes: np.ndarray):
+        """Split u64 query hashes into int32 planes + start slots."""
+        hashes = np.asarray(hashes, dtype=np.uint64)
+        q_hi = (hashes >> np.uint64(32)).astype(np.uint32).view(np.int32)
+        q_lo = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        slot = (((hashes >> np.uint64(10)) ^ (hashes << np.uint64(7)))
+                & np.uint64(self.size - 1)).astype(np.int32)
+        return q_hi, q_lo, slot
+
+
+def _low32(x: torch.Tensor) -> torch.Tensor:
+    """Low 32 bits of int64 values, bit-cast to int32."""
+    lo = x & 0xFFFFFFFF
+    return torch.where(lo >= 1 << 31, lo - (1 << 32), lo).to(torch.int32)
+
+
+def probe_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot, n_probes: int):
+    """The probe of the kernels, vectorized: (count int32 [Q], 0 where
+    absent; probes int64 [Q], the slots each query reads before its hit or
+    the first empty slot)."""
+    size = key_hi.shape[0]
+    mask = size - 1
+    qh = q_hi.long() & 0xFFFFFFFF
+    ql = q_lo.long() & 0xFFFFFFFF
+    # double-hashing stride from the query planes: low 32 bits of
+    # (hash >> 10), forced odd
+    stride = (((ql >> 10) | (qh << 22)) | 1) & mask
+    slot = q_slot.long()
+    out = torch.zeros(q_hi.shape, dtype=torch.int32, device=q_hi.device)
+    probes = torch.zeros(q_hi.shape, dtype=torch.int64, device=q_hi.device)
+    live = torch.ones(q_hi.shape, dtype=torch.bool, device=q_hi.device)
+    for p in range(n_probes):
+        idx = (slot + p * stride) & mask
+        khi, klo = key_hi[idx], key_lo[idx]
+        hit = live & (khi == q_hi) & (klo == q_lo)
+        out = torch.where(hit, counts[idx], out)
+        probes += live
+        live = live & ~hit & ~((khi == int(EMPTY_HI)) & (klo == int(EMPTY_LO)))
+        if not bool(live.any()):
+            break
+    return out, probes
+
+
+def kmer_lookup_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
+                      min_count: int, n_probes: int = MAX_PROBES):
+    """Plain twin of the kmer_lookup kernel."""
+    from .consensus_cuda import _count
+
+    _count("kmer_lookup_plain")
+    out, _ = probe_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot, n_probes)
+    return torch.where(out >= min_count, out, 0)
+
+
+def kmer_lookup(key_hi, key_lo, counts, q_hi, q_lo, q_slot, min_count: int,
+                n_probes: int = MAX_PROBES):
+    """[Q] queries -> [Q] counts (0 if absent or < min_count). Table planes
+    int32 [S] (S a power of two), queries int32 [Q] x 3. CPU tensors: the
+    plain twin; CUDA tensors: the kernel."""
+    if key_hi.device.type == "cpu":
+        return kmer_lookup_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
+                                 min_count, n_probes)
+    from ..utils.torchcfg import bucket_pow2
+    from .consensus_cuda import _check, _launch, _lib
+
+    dev = key_hi.device
+    if dev.type != "cuda":
+        raise ValueError(f"kmer_lookup: unsupported device {dev}")
+    S = key_hi.shape[0]
+    Q = q_hi.shape[0]
+    if S < 1 or S & (S - 1) or S > MAX_SLOTS:
+        raise ValueError(f"kmer_lookup: table size {S} is not a power of two")
+    for t, name in ((key_hi, "key_hi"), (key_lo, "key_lo"),
+                    (counts, "counts")):
+        _check(t, name, torch.int32, (S,), dev)
+    for t, name in ((q_hi, "q_hi"), (q_lo, "q_lo"), (q_slot, "q_slot")):
+        _check(t, name, torch.int32, (Q,), dev)
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    fn = _lib("kmer_lookup").np2t_kmer_lookup
+    with torch.cuda.device(dev):
+        _launch("kmer_lookup", (bucket_pow2(Q, 1 << 12),), fn,
+                key_hi.data_ptr(), key_lo.data_ptr(),
+                counts.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(),
+                q_slot.data_ptr(), out.data_ptr(), Q, S - 1, int(min_count),
+                int(n_probes), torch.cuda.current_stream(dev).cuda_stream)
+    return out

@@ -21,9 +21,11 @@ aggregation closures instead of being dispatched here.
 Exactness: anchor-forced windowing makes the windowed DP equal to the
 reference's whole-contig DP (pipeline/windows.py); windows that overflow the
 device's static bounds (slots, path steps) re-run on the host, and a
-degenerate contig falls back to the whole-contig oracle. Every contig length
-takes this whole-contig path (the segmented engine is not ported; it gives
-byte-identical output).
+degenerate contig falls back to the whole-contig oracle. A contig of
+NP2_SEG_MIN bases or more, ingested natively, goes to the segmented engine
+instead (pipeline/segmented.py): the same device engine over anchor-bounded
+segments, with resident state bounded by the segment, byte-identical output,
+and no oracle fallback.
 """
 
 from __future__ import annotations
@@ -349,6 +351,13 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
                             variants: DpVariants,
                             stream_cache: Optional[dict] = None,
                             final_iter: bool = False,
+                            plan_start: int = 0,
+                            plan_end: Optional[int] = None,
+                            plan_end_nominal: Optional[int] = None,
+                            plan_end_max: Optional[int] = None,
+                            first_keep_ge: bool = True,
+                            out_info: Optional[dict] = None,
+                            on_plan=None,
                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Run the device engine; return the global REVERSED backtrack stream as
     (pos, base_ascii, qv, lowcov) arrays: the exact stream the reference
@@ -356,12 +365,23 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
     two facts the LQ state machine reads (qv = count*100 // coverage and
     coverage < 2; models.oracle_msa.lq_from_qv_stream). Chunks go through
     `runner`, or through the active cross-contig batcher when there is one
-    (runner may then be None)."""
+    (runner may then be None).
+
+    Segmented use (pipeline/segmented.py): plan_start/plan_end[_nominal/_max]
+    bound the window plan and on_plan fires the moment it is realized (see
+    build_window_batch); first_keep_ge=False makes the FIRST window keep
+    only pos > its start (a mid-contig segment whose opening anchor column
+    belongs to the previous segment's last window); out_info (when given)
+    receives {"cut", "best_sum"} and leaves the negative-global-best check
+    to the caller (it is a whole-contig sum)."""
     with stage("plan_windows"):
         wb = build_window_batch(alignseqs, n_pos, ref_codes,
                                 target=cfg.window_len,
                                 stream_cache=stream_cache,
-                                consume_cache=final_iter)
+                                consume_cache=final_iter,
+                                plan_start=plan_start, plan_end=plan_end,
+                                plan_end_nominal=plan_end_nominal,
+                                plan_end_max=plan_end_max, on_plan=on_plan)
     if wb.n_windows == 0:
         raise WindowOverflow("no windows")
     K = cfg.max_kmers_per_col
@@ -493,7 +513,11 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
 
     # whole-contig default-kmer check (main.rs:1651): window-local maxima are
     # partial sums from each anchor, so their sum is the true global best
-    if int(best_all.sum()) < 0:
+    # (segmented callers sum it across segments instead: out_info)
+    if out_info is not None:
+        out_info["cut"] = int(wb.plan.ends[-1])
+        out_info["best_sum"] = int(best_all.sum())
+    elif int(best_all.sum()) < 0:
         raise WindowOverflow("global best score < 0 (degenerate default kmer)")
 
     # stitch in global reverse order: last window first; window w keeps
@@ -516,7 +540,7 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
             emit_base = CODE2ASCII[packed_r & 0x7]
             emit_qv = qv_r
             emit_low = (packed_r & 0x20) != 0
-        if w > 0:
+        if w > 0 or not first_keep_ge:
             keep = keep & (abs_pos > wb.window_start[w])
         else:
             keep = keep & (abs_pos >= 0)
@@ -543,14 +567,34 @@ def polish_contig_cuda(tseq: bytes, records: Sequence[BamRecord],
     taken as resolved); the output is the same under each. With an active
     cross-contig batcher every chunk goes through it. native: optional
     (bam_path, tid) to ingest via the C++ fast path (io/_native) instead of
-    the `records` list. pre_ingest: optional Future
-    (or plain tuple) carrying an already-run build_alignseqs_native_flat
-    result for this contig (the orchestrator's one-contig lookahead)."""
+    the `records` list; with native, a contig for which
+    segmented.use_segmented holds goes to the segmented engine unless
+    pre_ingest carries its ingest. pre_ingest: optional Future (or plain
+    tuple) carrying an already-run build_alignseqs_native_flat result for
+    this contig, or None (the orchestrator's one-contig lookahead, which
+    declines contigs that will be segmented)."""
     dev = resolve_device(device)
     variants = resolve_dp_variants(dp_variant)
     cfg = cfg or PolishConfig()
     if len(tseq) < cfg.min_ctg_len:
         return passthrough_consensus(tseq)
+    pre = None
+    if pre_ingest is not None:
+        with stage("ingest_alignseqs"):
+            pre = (pre_ingest.result() if hasattr(pre_ingest, "result")
+                   else pre_ingest)
+    if native is not None and pre is None:
+        from ..io.native import available as native_available
+        from .segmented import polish_contig_cuda_segmented, use_segmented
+
+        # (a lookahead that declined a contig to be segmented hands None:
+        # such a contig is routed here too)
+        if use_segmented(len(tseq)) and native_available():
+            # chromosome-scale: bounded-memory segmented engine (no oracle
+            # fallback: a WindowOverflow there means degenerate input)
+            return polish_contig_cuda_segmented(
+                tseq, tables, cfg, native[0], native[1], device=dev,
+                dp_variant=variants)
     from .batcher import get_active_batcher
 
     runner = None if get_active_batcher() is not None else ChunkRunner(dev)
@@ -559,11 +603,8 @@ def polish_contig_cuda(tseq: bytes, records: Sequence[BamRecord],
     alignseqs = None
     flat = None
     with stage("ingest_alignseqs"):
-        if pre_ingest is not None:
-            res = (pre_ingest.result() if hasattr(pre_ingest, "result")
-                   else pre_ingest)
-            if res is not None:
-                alignseqs, flat = res
+        if pre is not None:
+            alignseqs, flat = pre
         if alignseqs is None and native is not None:
             from ..models.oracle import build_alignseqs_native_flat
 

@@ -255,6 +255,12 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
     with stage("load_yak_tables"):
         tables = [load_yak(p) for p in yak_paths]
     tables.sort(key=lambda t: t.ksize)  # option.rs:238
+    if engine == "cuda" and dev.type == "cuda":
+        # large lookup and scoring batches go to the device-resident table
+        # (io/yak.py, models/oracle_lq.py routing thresholds)
+        for t in tables:
+            t.use_device = True
+            t.device = dev
 
     from ..io.bam import fill_secondary_seq, retrieve_secondary_seqs
     from ..io.native import available as native_available
@@ -358,6 +364,10 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
                 tid = name_to_tid.get(name)
                 if tid is None or len(seq) < cfg.min_ctg_len:
                     return None
+                from .segmented import use_segmented
+
+                if use_segmented(len(seq)):
+                    return None  # segmented engine streams its own ingest
                 return build_alignseqs_native_flat(bam_path, tid, seq, cfg)
 
             with ThreadPoolExecutor(max_workers=1) as pre_pool:

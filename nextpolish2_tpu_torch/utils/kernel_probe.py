@@ -1,20 +1,24 @@
-"""A short probe of the four kernels for the first run on a card after a
+"""A short probe of the six kernels for the first run on a card after a
 change to any file under csrc/: seconds, where the whole smoke run takes
 minutes.
 
     python3 -m nextpolish2_tpu_torch.utils.kernel_probe
 
 It builds the kernels and prints what `ptxas -v` says of every source
-(registers, stack, spills), holds all four kernels to their plain twins on
+(registers, stack, spills), holds the four chunk kernels to their twins on
 every edge-case table of dp_cases (dynamic-K under an exact and a mangled
 n_slots; every failing case is reported, not only the first), and times them
 on synthetic chunks of the production shapes: a 4-window table from
 dp_cases.make_case (sparse: about 1.3 live slots a column, as real chunks;
 dense: 2 at K=8, 12 at K=48) repeated to B windows, with the first and last 4
 windows compared with the twins. One JSON line per
-shape (median of 20 launches, CUDA events). Exit code 1 on any difference.
-The times are for comparing two builds of a kernel with each other; the
-figures of record come from chip_smoke.py, on real chunks.
+shape (median of 20 launches, CUDA events). The two k-mer kernels are held
+to their twins on the bundled k21 and k31 tables, packed on the card
+(present, absent, below-min_count and high-bit queries; alleles with Ns,
+empty ones, ones shorter than k, padding), and timed at 2^20 queries and
+bases. Exit code 1 on any difference. The times are for comparing two builds
+of a kernel with each other; the figures of record come from chip_smoke.py,
+on real chunks.
 """
 
 from __future__ import annotations
@@ -50,6 +54,72 @@ def _median_ms(fn, n: int = 20) -> float:
     return statistics.median(times)
 
 
+def check_kmer_kernels(dev) -> int:
+    """kmer_lookup and kmer_min_scores against their twins on the bundled
+    tables; one JSON line per table. Returns the number of differences."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ..io.fastx import read_fastx
+    from ..io.yak import load_yak
+    from ..ops import kmer_score as ks
+    from ..ops import kmer_table as kt
+
+    data = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "testdata")
+    ref = next(iter(read_fastx(os.path.join(data, "slice.fa"))))[1]
+    bad = 0
+    for name in ("k21.yak", "k31.yak"):
+        rng = np.random.default_rng(5)
+        table = load_yak(os.path.join(data, name))
+        table.device = dev
+        tab, hi, lo, ct = table.device_table()
+        h = table.full_hashes()
+        n = 1 << 20
+        q = np.concatenate([
+            rng.choice(h, n // 2),
+            rng.integers(0, 1 << (2 * table.ksize), n // 4, dtype=np.uint64),
+            rng.integers(0, 1 << 62, n // 4, dtype=np.uint64)
+            | np.uint64(1 << 63) | np.uint64(1 << 31)])
+        qd = [torch.from_numpy(a).to(dev) for a in tab.query_host_arrays(q)]
+        seqs, total = [], 0
+        while total < n - 200:
+            m = int(rng.integers(0, 200))
+            at = int(rng.integers(0, len(ref) - m))
+            a = bytearray(ref[at : at + m])
+            if m > 40 and rng.random() < 0.1:
+                a[m // 2] = ord("N")
+            seqs.append(bytes(a))
+            total += m + 1
+        codes, starts = (torch.from_numpy(a).to(dev)
+                         for a in ks.score_inputs(seqs))
+        equal = True
+        for min_count in (0, 5, 40):
+            for n_probes in (tab.n_probes, kt.MAX_PROBES):
+                got = kt.kmer_lookup(hi, lo, ct, *qd, min_count, n_probes)
+                want = kt.kmer_lookup_plain(hi, lo, ct, *qd, min_count,
+                                            n_probes)
+                sg = ks.kmer_min_scores(hi, lo, ct, codes, starts,
+                                        table.ksize, min_count, n_probes)
+                sw = ks.kmer_min_scores_plain(hi, lo, ct, codes, starts,
+                                              table.ksize, min_count,
+                                              n_probes)
+                torch.cuda.synchronize()
+                equal &= torch.equal(got, want) and torch.equal(sg, sw)
+        bad += not equal
+        print(json.dumps({
+            "kmer_table": name, "keys": len(h), "slots": tab.size,
+            "n_probes": tab.n_probes, "equal_to_twins": equal,
+            "lookup_ms_at_2^20": _median_ms(lambda: kt.kmer_lookup(
+                hi, lo, ct, *qd, 5, tab.n_probes)),
+            "score_ms_at_2^20": _median_ms(lambda: ks.kmer_min_scores(
+                hi, lo, ct, codes, starts, table.ksize, 5, tab.n_probes)),
+            "device": torch.cuda.get_device_name(0)}), flush=True)
+    return bad
+
+
 def main() -> int:
     import torch
 
@@ -69,7 +139,7 @@ def main() -> int:
         for line in info[name]["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
-    bad = 0
+    bad = check_kmer_kernels(dev)
     for case in dp_cases.edge_cases():
         try:
             print(json.dumps(dp_cases.check_kernels(case, dev)))
