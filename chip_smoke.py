@@ -24,13 +24,17 @@ line):
      columns, deep insertion chains, invalid slots that match a target
      before or behind them, walks cut at 0, 1 and 7 steps;
   2b. the two k-mer kernels on E. coli's k21 table, packed on the card (its
-     planes equal to the numpy build's): kmer_lookup on 2^12..2^22 queries
-     (half present, half absent; min_count 5 and 7, which cuts the counts
-     of 6, all but repeats) and kmer_min_scores on allele batches of
-     2^12..2^24 bases cut from E. coli with Ns and substitutions, each bit
-     for bit against its twin, and up to 2^18 against the host search, with
-     times, bounds and the searchsorted yardstick; the device build's peak
-     memory against the estimate KmerTable.device_fits routes by; then both
+     16-byte slot entries equal to the numpy build's): kmer_lookup on
+     2^12..2^22 queries (half present, half absent; min_count 5 and 7, which
+     cuts the counts of 6, all but repeats) and kmer_min_scores on allele
+     batches of 2^12..2^24 bases cut from E. coli with Ns and substitutions,
+     each bit for bit against its twin, and up to 2^18 against the host
+     search, with the call's time (wrapper included) and the kernel-only
+     time (CUDA events around the C entry point alone, its arguments
+     prepared), the device operations of a call and their device time
+     (torch.profiler), bounds and the searchsorted yardstick; the device
+     build's peak memory against the estimate KmerTable.device_fits routes
+     by (DeviceKmerTable.device_bytes: 17 B a slot, 192 B a key); then both
      KmerTable routes end to end (upload, kernel and download at every
      size; the host search or chain up to 2^18) and their crossovers, with
      and without the table's device build;
@@ -457,7 +461,8 @@ def kmer_setup(dev) -> dict:
     import torch
 
     from nextpolish2_tpu_torch.io.yak import load_yak
-    from nextpolish2_tpu_torch.ops.kmer_table import DeviceKmerTable
+    from nextpolish2_tpu_torch.ops.kmer_table import (BUILD_BYTES_PER_SLOT,
+                                                      DeviceKmerTable)
 
     table = load_yak(os.path.join(DATA, "ecoli.k21.yak"))
     hashes = table.full_hashes()
@@ -479,6 +484,8 @@ def kmer_setup(dev) -> dict:
     if peak > estimate or slots != tab.size:
         fail(f"device build peaked at {peak} B on {tab.size} slots; "
              f"device_bytes estimates {estimate} B on {slots}")
+    if not torch.equal(tab.entries.cpu(), torch.from_numpy(ref.entries)):
+        fail("device-built slot entries != the numpy build's")
     for got, want, name in ((hi, ref.key_hi, "key_hi"),
                             (lo, ref.key_lo, "key_lo"),
                             (ct, ref.counts, "counts")):
@@ -493,8 +500,9 @@ def kmer_setup(dev) -> dict:
     info = {"keys": len(hashes), "slots": tab.size, "n_probes": tab.n_probes,
             "numpy_build_s": numpy_s, "device_build_s": device_s,
             "device_build_peak_bytes": peak,
-            "device_build_peak_bytes_per_key": (peak - 13 * tab.size)
-            / len(hashes), "device_bytes_estimate": estimate}
+            "device_build_peak_bytes_per_key":
+                (peak - BUILD_BYTES_PER_SLOT * tab.size) / len(hashes),
+            "device_bytes_estimate": estimate}
     print(json.dumps({"phase": "kmer_table", "table": "ecoli.k21.yak",
                       **info}), flush=True)
     return {"table": table, "tab": tab, "planes": (hi, lo, ct),
@@ -502,6 +510,50 @@ def kmer_setup(dev) -> dict:
             "comp_counts": torch.from_numpy(
                 table.counts.astype(np.int32)).to(dev),
             "build_ms": device_s * 1e3, "info": info}
+
+
+def entry_ms(name: str, call: tuple) -> float:
+    """Median CUDA-event ms of a kernel's C entry point alone, its
+    arguments prepared by the wrapper's checks once (`call`: the C function,
+    its arguments, the output); no wrapper, no count."""
+    fn, args, _ = call
+    rc = fn(*args)
+    if rc != 0:
+        fail(f"{name}: C entry point returned CUDA error {rc}")
+    return median_ms(lambda: fn(*args), TIMED_LAUNCHES, warm=False)
+
+
+def device_trace(fn, n: int = TIMED_LAUNCHES) -> dict:
+    """n calls of fn under torch.profiler: the device operations (kernels,
+    memsets, copies) by name with their count a call, and the device time
+    a call, the sum over names of each one's mean duration (the trace's own
+    stamps, so no host gap between launches counts; the mean keeps events
+    the trace drops out of it). "not measured" where the trace holds no
+    device activity or the profiler cannot trace this card (a diagnostic:
+    the kernel checks are elsewhere)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ops: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ops.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    except RuntimeError as e:
+        return {"device_ops_per_call": f"not measured: {e}",
+                "device_ms": None}
+    if not ops:
+        return {"device_ops_per_call": "not measured: no device activity "
+                "in the trace", "device_ms": None}
+    return {"device_ops_per_call": {k: len(v) / n for k, v in ops.items()},
+            "device_ms": sum(statistics.mean(v) for v in ops.values()) / 1e3}
 
 
 def kmer_row(name: str, n: int, err: int, ms: float, plain_ms: float,
@@ -530,6 +582,7 @@ def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
     import torch
 
     from nextpolish2_tpu_torch.ops.kmer_table import (kmer_lookup,
+                                                      kmer_lookup_call,
                                                       kmer_lookup_plain,
                                                       probe_plain)
 
@@ -585,7 +638,11 @@ def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
         median_ms(lambda: kmer_lookup_plain(hi, lo, ct, *qd, 5,
                                             tab.n_probes), PLAIN_RUNS),
         Q * 16 + 32 * probes, 10 * Q + 8 * probes,
-        median_ms(library, TIMED_LAUNCHES), probes=probes)
+        median_ms(library, TIMED_LAUNCHES), probes=probes,
+        kernel_ms=entry_ms("kmer_lookup", kmer_lookup_call(
+            hi, lo, ct, *qd, 5, tab.n_probes)),
+        **device_trace(lambda: kmer_lookup(hi, lo, ct, *qd, 5,
+                                           tab.n_probes)))
     route = {"n": Q, "host_ms": host_ms,
              "device_ms": wall_ms(lambda: table.get_device(q, 5), 5)}
     return row, route
@@ -624,6 +681,7 @@ def measure_score(km: dict, seq: bytes, n_bases: int, dev, rng,
     from nextpolish2_tpu_torch.ops.kmer_score import (device_min_kscores,
                                                       end_position_hashes,
                                                       kmer_min_scores,
+                                                      kmer_min_scores_call,
                                                       kmer_min_scores_plain,
                                                       score_inputs)
     from nextpolish2_tpu_torch.ops.kmer_table import _low32, probe_plain
@@ -680,8 +738,12 @@ def measure_score(km: dict, seq: bytes, n_bases: int, dev, rng,
                                                     tab.n_probes),
                       PLAIN_RUNS),
             L + 8 * S + 32 * probes,
-            L * (4 * k + 30 + 3 * S.bit_length()) + 8 * probes, None,
-            alleles=len(seqs), probes=probes)
+            L * 38 + 3 * (L // 32) * S.bit_length() + 8 * probes, None,
+            alleles=len(seqs), probes=probes,
+            kernel_ms=entry_ms("kmer_min_scores", kmer_min_scores_call(
+                hi, lo, ct, cd, sd, k, 5, tab.n_probes)),
+            **device_trace(lambda: kmer_min_scores(hi, lo, ct, cd, sd, k, 5,
+                                                   tab.n_probes)))
     route = {"n": n_bases, "alleles": len(seqs), "kernel_length": L,
              "host_ms": host_ms,
              "device_ms": wall_ms(lambda: device_min_kscores(table, seqs, 5),
@@ -709,12 +771,20 @@ def kmer_phase(dev) -> dict:
     crossover of each route (upload and download included) with and
     without the device build of the table. Returns {(name, N): row}."""
     import numpy as np
+    import torch
 
     from nextpolish2_tpu_torch.io.fastx import read_fastx
     from nextpolish2_tpu_torch.io.yak import KMER_DEVICE_MIN
     from nextpolish2_tpu_torch.models.oracle_lq import KMER_SCORE_DEVICE_MIN
+    from nextpolish2_tpu_torch.ops.kmer_table import stream_of
 
     t0 = time.time()
+    # the wrappers' stream handle is the current stream's, also off the
+    # default one
+    for s in (None, torch.cuda.Stream(dev)):
+        with torch.cuda.stream(s):
+            if stream_of(dev) != torch.cuda.current_stream(dev).cuda_stream:
+                fail("kmer_table.stream_of != the current stream's handle")
     km = kmer_setup(dev)
     rng = np.random.default_rng(11)
     rows, routes = {}, {"lookup": [], "score": []}

@@ -179,9 +179,11 @@ def main(argv=None) -> int:
           f"{stats.passthrough} passthrough); bases {stats.in_bases} -> "
           f"{stats.out_bases}", file=sys.stderr)
     if stats.batches:
-        print(f"Device batches: {stats.batches} (fill "
-              f"{stats.batch_fill:.0%}, {stats.csr_batches} CSR-direct)",
-              file=sys.stderr)
+        dense = (f", dense fallbacks: {stats.dense_reasons}"
+                 if stats.dense_reasons else "")
+        print(f"Device batches: {stats.batches} (cross-contig lane fill "
+              f"{stats.batch_fill:.1%}, {stats.csr_batches} CSR-direct"
+              f"{dense})", file=sys.stderr)
     return 0
 
 

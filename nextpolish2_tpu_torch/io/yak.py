@@ -258,10 +258,12 @@ class KmerTable:
 
     def device_table(self) -> tuple:
         """The table packed into an open-addressing DeviceKmerTable whose
-        planes are resident on `device`: (DeviceKmerTable, key_hi, key_lo,
-        counts). Packed on that device (DeviceKmerTable.build_torch: the
-        numpy build's planes, bit for bit) once, under a module lock, so that
-        concurrent contig threads do not both pay for it."""
+        slot entries are resident on `device`: (DeviceKmerTable, key_hi,
+        key_lo, counts), the planes being views of the entries' columns, as
+        the kernels' wrappers take them. Packed on that device
+        (DeviceKmerTable.build_torch: the numpy build's entries, bit for
+        bit) once, under a module lock, so that concurrent contig threads do
+        not both pay for it."""
         from ..ops.kmer_table import DeviceKmerTable
         from ..utils.torchcfg import resolve_device
 

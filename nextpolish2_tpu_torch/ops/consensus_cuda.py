@@ -59,7 +59,7 @@ HEADERS = ("dp_common.cuh", "kmer_common.cuh")
 # stream pointer
 _ARGS = {"consensus_dp": (8, 3), "consensus_dp_base": (7, 3),
          "consensus_dp_dynk": (8, 3), "backtrack": (8, 4),
-         "kmer_lookup": (7, 4), "kmer_score": (6, 6)}
+         "kmer_lookup": (5, 4), "kmer_score": (4, 7)}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 K_MAX = 64  # the kernels' slot bound (uint64 slot masks, two slots a lane)
@@ -69,6 +69,7 @@ SHAPE_LAUNCHES: dict = collections.Counter()
 BUILD_INFO: dict = {}  # name -> {"seconds", "log"} of this process's builds
 
 _libs: dict = {}
+_fns: dict = {}                 # name -> the C entry point, resolved once
 _lock = threading.Lock()        # builds and library loads
 _count_lock = threading.Lock()  # LAUNCHES, SHAPE_LAUNCHES, _launch_events
 # (name, start event, end event) per kernel launch while timing is on
@@ -178,6 +179,7 @@ def build_kernels(force: bool = False) -> dict:
             os.replace(tmp, _so_path(n))
             BUILD_INFO[n] = {"seconds": time.time() - t0, "log": log}
             _libs.pop(n, None)
+            _fns.pop(n, None)
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         return BUILD_INFO
@@ -199,6 +201,14 @@ def _lib(name: str) -> ctypes.CDLL:
                 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
             _libs[name] = lib
     return lib
+
+
+def _fn(name: str):
+    """The C entry point np2t_<name>, built and loaded at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(_lib(name), f"np2t_{name}")
+    return fn
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -10,10 +10,12 @@ in ONE kernel launch; only an [n_seqs] count vector comes back.
 
 kmer_min_scores replaces the jitted XLA function
 nextpolish2_tpu/ops/kmer_score.py::device_min_kscores_jit (:90-176). For
-CUDA tensors it launches the hand-written kernel csrc/kmer_score.cu (one
-thread per end position, native 64-bit hash, allele by binary search in
-`starts`); for CPU tensors it runs the plain twin kmer_min_scores_plain. It
-never falls back, and every launch adds one to
+CUDA tensors it launches the hand-written kernel csrc/kmer_score.cu (a warp
+a strip of 512 end positions, 1024 from 2^19 bases, each lane rolling its
+k-mers over 16 or 32 of them, native 64-bit hash, one search of `starts` a
+strip, one 16-byte load a probe, minima kept per allele in registers; one
+memset and one kernel a call); for CPU tensors it runs the plain twin
+kmer_min_scores_plain. It never falls back, and every launch adds one to
 consensus_cuda.LAUNCHES["kmer_min_scores"].
 """
 
@@ -24,9 +26,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .kmer_table import MAX_PROBES, MAX_SLOTS, _low32, probe_plain
+from ..utils.torchcfg import bucket_pow2
+from .consensus_cuda import _check, _count, _fn
+from .kmer_table import (MAX_PROBES, MAX_SLOTS, _low32, entries_ptr,
+                         launch_on, probe_plain, stream_of)
 
 SEP_CODE = 5  # joined-stream separator; any code >= 4 is an invalid base
+# end positions a warp of the kernel below 2^19 bases (32 * kShortRun,
+# kmer_score.cu; twice that from there on): it sizes the kernel's scratch
+STRIP = 512
 _BIG = np.iinfo(np.int32).max
 
 
@@ -70,8 +78,6 @@ def end_position_hashes(codes: torch.Tensor, ksize: int):
 def kmer_min_scores_plain(key_hi, key_lo, counts, codes, starts, ksize: int,
                           min_count: int, n_probes: int = MAX_PROBES):
     """Plain twin of the kmer_min_scores kernel."""
-    from .consensus_cuda import _count
-
     _count("kmer_min_scores_plain")
     mask = key_hi.shape[0] - 1
     valid, h = end_position_hashes(codes, ksize)
@@ -91,20 +97,11 @@ def kmer_min_scores_plain(key_hi, key_lo, counts, codes, starts, ksize: int,
     return torch.where(mins == _BIG, 0, mins)
 
 
-def kmer_min_scores(key_hi, key_lo, counts, codes, starts, ksize: int,
-                    min_count: int, n_probes: int = MAX_PROBES):
-    """codes uint8 [L] (joined alleles, SEP_CODE separators, pad >= 4),
-    starts int32 [S] (allele start offsets, ascending; padding repeats L)
-    -> int32 [S] min k-mer count per allele (0 if a k-mer is absent or
-    below min_count, or the allele has no valid k-mer). key_hi/key_lo/
-    counts: the table planes. CPU tensors: the plain twin; CUDA tensors: the
-    kernel."""
-    if key_hi.device.type == "cpu":
-        return kmer_min_scores_plain(key_hi, key_lo, counts, codes, starts,
-                                     ksize, min_count, n_probes)
-    from ..utils.torchcfg import bucket_pow2
-    from .consensus_cuda import _check, _launch, _lib
-
+def kmer_min_scores_call(key_hi, key_lo, counts, codes, starts, ksize: int,
+                         min_count: int, n_probes: int = MAX_PROBES):
+    """The checked C call of kmer_min_scores on CUDA tensors, not made: (C
+    function, its arguments, output tensor [S]). The call writes the
+    output's buffer, which holds the kernel's scratch behind the S minima."""
     dev = key_hi.device
     if dev.type != "cuda":
         raise ValueError(f"kmer_min_scores: unsupported device {dev}")
@@ -114,20 +111,36 @@ def kmer_min_scores(key_hi, key_lo, counts, codes, starts, ksize: int,
     if size < 1 or size & (size - 1) or size > MAX_SLOTS:
         raise ValueError(f"kmer_min_scores: table size {size} is not a "
                          "power of two")
+    entries = entries_ptr("kmer_min_scores", key_hi, key_lo, counts)
     L, S = codes.shape[0], starts.shape[0]
-    for t, name in ((key_hi, "key_hi"), (key_lo, "key_lo"),
-                    (counts, "counts")):
-        _check(t, name, torch.int32, (size,), dev)
     _check(codes, "codes", torch.uint8, (L,), dev)
     _check(starts, "starts", torch.int32, (S,), dev)
-    out = torch.empty(S, dtype=torch.int32, device=dev)
-    fn = _lib("kmer_score").np2t_kmer_score
-    with torch.cuda.device(dev):
-        _launch("kmer_min_scores", (bucket_pow2(L, 1 << 12),), fn,
-                key_hi.data_ptr(), key_lo.data_ptr(), counts.data_ptr(),
-                codes.data_ptr(), starts.data_ptr(), out.data_ptr(), L, S,
-                int(ksize), size - 1, int(min_count), int(n_probes),
-                torch.cuda.current_stream(dev).cuda_stream)
+    if codes.data_ptr() % 16:
+        raise ValueError("kmer_min_scores: codes are not 16-byte aligned")
+    n = S + 1 + (L + STRIP - 1) // STRIP
+    buf = torch.empty(n, dtype=torch.int32, device=dev)
+    return (_fn("kmer_score"),
+            (entries, codes.data_ptr(), starts.data_ptr(), buf.data_ptr(), L,
+             S, int(ksize), size - 1, int(min_count), int(n_probes), n,
+             stream_of(dev)), buf[:S])
+
+
+def kmer_min_scores(key_hi, key_lo, counts, codes, starts, ksize: int,
+                    min_count: int, n_probes: int = MAX_PROBES):
+    """codes uint8 [L] (joined alleles, SEP_CODE separators, pad >= 4),
+    starts int32 [S] (allele start offsets, ascending; padding repeats L)
+    -> int32 [S] min k-mer count per allele (0 if a k-mer is absent or
+    below min_count, or the allele has no valid k-mer). key_hi/key_lo/
+    counts: the table planes (on the card the columns of a
+    DeviceKmerTable's entries). CPU tensors: the plain twin; CUDA tensors:
+    the kernel."""
+    if key_hi.device.type == "cpu":
+        return kmer_min_scores_plain(key_hi, key_lo, counts, codes, starts,
+                                     ksize, min_count, n_probes)
+    fn, args, out = kmer_min_scores_call(key_hi, key_lo, counts, codes,
+                                         starts, ksize, min_count, n_probes)
+    launch_on(key_hi.device, "kmer_min_scores",
+              (bucket_pow2(codes.shape[0], 1 << 12),), fn, *args)
     return out
 
 
@@ -137,7 +150,6 @@ def score_inputs(seqs):
     padded with it to a power of two >= 2^16), starts int32 [S] (padded to
     a power of two >= 1024 with L)."""
     from ..utils.seqcodes import seq_to_codes
-    from ..utils.torchcfg import bucket_pow2
 
     n = len(seqs)
     lens = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=n)

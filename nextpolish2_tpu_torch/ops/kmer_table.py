@@ -2,27 +2,34 @@
 lookups.
 
 Each yak table (io/yak.py) is packed ONCE into a power-of-two
-open-addressing table of three int32 planes (key_hi = hash >> 32, key_lo =
-hash & 0xFFFFFFFF bit-cast, counts), the layout of the JAX package's
-ops/kmer_table.py and bit for bit its build. DeviceKmerTable.build is the
-numpy build, copied; build_torch is the same cascade in torch ops, so that a
-table bound for the card is packed there.
+open-addressing table of 16-byte slot entries, an int32 [S, 4] tensor
+{key_hi = hash >> 32, key_lo = hash & 0xFFFFFFFF bit-cast, count, 0}, so
+that a probe on the card reads key and count from one 32 B sector. Its
+first three columns, the views key_hi, key_lo and counts, are the JAX
+package's three planes (ops/kmer_table.py), bit for bit its build.
+DeviceKmerTable.build is the numpy build, copied; build_torch is the same
+cascade in torch ops, so that a table bound for the card is packed there.
 
 kmer_lookup replaces the jitted XLA function lookup / lookup_jit
 (nextpolish2_tpu/ops/kmer_table.py:120-154). For CUDA tensors it launches
-the hand-written kernel csrc/kmer_lookup.cu (one thread per query, stopping
-at the hit or the first empty slot, which is exact: csrc/kmer_common.cuh);
-for CPU tensors it runs the plain twin kmer_lookup_plain. It never falls
-back, and every launch adds one to consensus_cuda.LAUNCHES["kmer_lookup"].
+the hand-written kernel csrc/kmer_lookup.cu (one 16-byte load a probe,
+several chains a thread in flight, stopping at the hit or the first empty
+slot, which is exact: csrc/kmer_common.cuh); for CPU tensors it runs the
+plain twin kmer_lookup_plain. It never falls back, and every launch adds
+one to consensus_cuda.LAUNCHES["kmer_lookup"].
 """
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 from typing import Union
 
 import numpy as np
 import torch
+
+from ..utils.torchcfg import bucket_pow2
+from .consensus_cuda import _check, _count, _fn, _launch
 
 MAX_PROBES = 32
 # Probe scheme: DOUBLE HASHING -- probe i lands at (slot + i*stride) & mask
@@ -37,10 +44,11 @@ EMPTY_HI = np.int32(-1)          # 0xFFFFFFFF
 EMPTY_LO = np.int32(-2)          # 0xFFFFFFFE
 # the kernels take the slot mask as a 32-bit int and start slots as int32
 MAX_SLOTS = 1 << 31
-# build_torch's device peak besides the planes and the occupancy (13 B a
-# slot): per key, the int64 hashes, slots, order, pending keys, slots and
-# strides and the int32 counts it keeps, and one placement round's
+# build_torch's device peak: per slot, the 16-byte entry and a byte of
+# occupancy; per key, the int64 hashes, slots, order, pending keys, slots
+# and strides and the int32 counts it keeps, and one placement round's
 # temporaries (sorts included); chip_smoke.py measures it (PERF.md)
+BUILD_BYTES_PER_SLOT = 17
 BUILD_BYTES_PER_KEY = 192
 
 Planes = Union[np.ndarray, torch.Tensor]
@@ -48,8 +56,9 @@ Planes = Union[np.ndarray, torch.Tensor]
 
 @dataclass
 class DeviceKmerTable:
-    """A packed table: numpy planes (build) or torch planes on the device
-    they were packed on (build_torch)."""
+    """A packed table: numpy (build) or torch on the device it was packed
+    on (build_torch). key_hi, key_lo and counts are columns 0-2 of
+    `entries`."""
 
     ksize: int
     size: int            # power of two
@@ -60,6 +69,7 @@ class DeviceKmerTable:
     # longest probe chain used at build time: lookups stop there (probes
     # past it can never hit)
     n_probes: int = MAX_PROBES
+    entries: Planes = None  # i32 [size, 4]: {key_hi, key_lo, count, 0}
 
     @staticmethod
     def _first_size(n: int, load_factor: float) -> int:
@@ -75,7 +85,8 @@ class DeviceKmerTable:
         """(slots, peak device bytes) of build_torch on n_keys keys, at the
         first size it tries."""
         size = cls._first_size(n_keys, load_factor)
-        return size, 13 * size + BUILD_BYTES_PER_KEY * n_keys
+        return size, (BUILD_BYTES_PER_SLOT * size
+                      + BUILD_BYTES_PER_KEY * n_keys)
 
     @classmethod
     def build(cls, hashes: np.ndarray, counts: np.ndarray, ksize: int,
@@ -85,19 +96,26 @@ class DeviceKmerTable:
         counts = np.asarray(counts, dtype=np.int32)
         size = cls._first_size(len(hashes), load_factor)
         while True:
-            ok, hi, lo, cnt, n_probes = cls._try_pack(hashes, counts, size)
+            ok, entries, n_probes = cls._try_pack(hashes, counts, size)
             if ok:
                 break
             size *= 2
-        return cls(ksize=ksize, size=size, key_hi=hi, key_lo=lo, counts=cnt,
-                   kmask=cls._kmask(ksize), n_probes=n_probes)
+        return cls._of_entries(entries, ksize, n_probes)
+
+    @classmethod
+    def _of_entries(cls, entries, ksize: int, n_probes: int):
+        return cls(ksize=ksize, size=entries.shape[0], key_hi=entries[:, 0],
+                   key_lo=entries[:, 1], counts=entries[:, 2],
+                   kmask=cls._kmask(ksize), n_probes=n_probes,
+                   entries=entries)
 
     @staticmethod
     def _try_pack(hashes, counts, size):
         mask = np.uint64(size - 1)
-        hi = np.full(size, EMPTY_HI, dtype=np.int32)
-        lo = np.full(size, EMPTY_LO, dtype=np.int32)
-        cnt = np.zeros(size, dtype=np.int32)
+        entries = np.zeros((size, 4), dtype=np.int32)
+        entries[:, 0] = EMPTY_HI
+        entries[:, 1] = EMPTY_LO
+        hi, lo, cnt = entries[:, 0], entries[:, 1], entries[:, 2]
         # mix so slot bits differ from the yak prefix-bin bits
         slot = ((hashes >> np.uint64(10)) ^ (hashes << np.uint64(7))) & mask
         order = np.argsort(slot, kind="stable")
@@ -111,7 +129,7 @@ class DeviceKmerTable:
         # vectorized cascade: place keys; collisions retry at +stride
         for probe in range(MAX_PROBES):
             if len(pending) == 0:
-                return True, hi, lo, cnt, probe
+                return True, entries, probe
             s = (pslots + probe * pstride) & (size - 1)
             # first pending key per free slot wins this round
             free = ~occupied[s]
@@ -130,26 +148,27 @@ class DeviceKmerTable:
             keep[winners_local] = False
             pending, pcnts = pending[keep], pcnts[keep]
             pslots, pstride = pslots[keep], pstride[keep]
-        return len(pending) == 0, hi, lo, cnt, MAX_PROBES
+        return len(pending) == 0, entries, MAX_PROBES
 
     @classmethod
     def build_torch(cls, hashes: np.ndarray, counts: np.ndarray, ksize: int,
                     device, load_factor: float = 0.5) -> "DeviceKmerTable":
         """build, as torch ops on `device`: the same cascade, so the same
-        planes bit for bit (a stable sort is one permutation in numpy and in
-        torch), left on the device."""
+        entries bit for bit (a stable sort is one permutation in numpy and
+        in torch), left on the device. The entries are written in place
+        through their column views, so no plane is packed afterwards."""
         h = torch.from_numpy(np.ascontiguousarray(
             hashes, dtype=np.uint64).view(np.int64)).to(device)
         c = torch.from_numpy(np.ascontiguousarray(counts, dtype=np.int32)) \
             .to(device)
         size = cls._first_size(len(hashes), load_factor)
         while True:
-            ok, hi, lo, cnt, n_probes = cls._try_pack_torch(h, c, size)
+            ok, entries, n_probes = cls._try_pack_torch(h, c, size)
             if ok:
                 break
+            del entries  # freed before the next size is allocated
             size *= 2
-        return cls(ksize=ksize, size=size, key_hi=hi, key_lo=lo, counts=cnt,
-                   kmask=cls._kmask(ksize), n_probes=n_probes)
+        return cls._of_entries(entries, ksize, n_probes)
 
     @staticmethod
     def _try_pack_torch(h: torch.Tensor, counts: torch.Tensor, size: int):
@@ -158,9 +177,10 @@ class DeviceKmerTable:
         arithmetic right shift gives the same slots and strides."""
         dev = h.device
         mask = size - 1
-        hi = torch.full((size,), int(EMPTY_HI), dtype=torch.int32, device=dev)
-        lo = torch.full((size,), int(EMPTY_LO), dtype=torch.int32, device=dev)
-        cnt = torch.zeros(size, dtype=torch.int32, device=dev)
+        entries = torch.zeros((size, 4), dtype=torch.int32, device=dev)
+        entries[:, 0] = int(EMPTY_HI)
+        entries[:, 1] = int(EMPTY_LO)
+        hi, lo, cnt = entries[:, 0], entries[:, 1], entries[:, 2]
         slot = ((h >> 10) ^ (h << 7)) & mask
         order = torch.sort(slot, stable=True).indices
         occupied = torch.zeros(size, dtype=torch.bool, device=dev)
@@ -170,7 +190,7 @@ class DeviceKmerTable:
         pstride = ((pending >> 10) | 1) & mask
         for probe in range(MAX_PROBES):
             if pending.numel() == 0:
-                return True, hi, lo, cnt, probe
+                return True, entries, probe
             s = (pslots + probe * pstride) & mask
             free_idx = torch.nonzero(~occupied[s]).squeeze(1)
             sf, idx_sorted = torch.sort(s[free_idx], stable=True)
@@ -187,7 +207,7 @@ class DeviceKmerTable:
             keep[winners] = False
             pending, pcnts = pending[keep], pcnts[keep]
             pslots, pstride = pslots[keep], pstride[keep]
-        return pending.numel() == 0, hi, lo, cnt, MAX_PROBES
+        return pending.numel() == 0, entries, MAX_PROBES
 
     def query_host_arrays(self, hashes: np.ndarray):
         """Split u64 query hashes into int32 planes + start slots."""
@@ -235,42 +255,93 @@ def probe_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot, n_probes: int):
 def kmer_lookup_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
                       min_count: int, n_probes: int = MAX_PROBES):
     """Plain twin of the kmer_lookup kernel."""
-    from .consensus_cuda import _count
-
     _count("kmer_lookup_plain")
     out, _ = probe_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot, n_probes)
     return torch.where(out >= min_count, out, 0)
 
 
-def kmer_lookup(key_hi, key_lo, counts, q_hi, q_lo, q_slot, min_count: int,
-                n_probes: int = MAX_PROBES):
-    """[Q] queries -> [Q] counts (0 if absent or < min_count). Table planes
-    int32 [S] (S a power of two), queries int32 [Q] x 3. CPU tensors: the
-    plain twin; CUDA tensors: the kernel."""
-    if key_hi.device.type == "cpu":
-        return kmer_lookup_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
-                                 min_count, n_probes)
-    from ..utils.torchcfg import bucket_pow2
-    from .consensus_cuda import _check, _launch, _lib
+# id(key_hi) -> (weak references to the three planes, entries address):
+# the plane triples entries_ptr has checked, each dropped with its key_hi
+_checked: dict = {}
 
+
+def entries_ptr(name: str, key_hi, key_lo, counts) -> int:
+    """Address of the [S, 4] slot entries whose columns 0-2 the three
+    planes are (DeviceKmerTable's layout, whose shape and type its build
+    fixes); raises where they are not. Checked once per triple of plane
+    tensors: a table's later calls find it here."""
+    hit = _checked.get(id(key_hi))
+    if (hit is not None and hit[0]() is key_hi and hit[1]() is key_lo
+            and hit[2]() is counts):
+        return hit[3]
+    p = key_hi.data_ptr()
+    if (key_hi.dtype != torch.int32 or key_hi.stride() != (4,)
+            or key_lo.stride() != (4,) or counts.stride() != (4,)
+            or key_lo.data_ptr() != p + 4 or counts.data_ptr() != p + 8
+            or p % 16):
+        raise ValueError(f"{name}: the table planes are not the columns of "
+                         "one int32 [S, 4] slot-entry tensor")
+    key = id(key_hi)
+    _checked[key] = (weakref.ref(key_hi, lambda _: _checked.pop(key, None)),
+                     weakref.ref(key_lo), weakref.ref(counts), p)
+    return p
+
+
+# the current stream's handle, without building a Stream object on every
+# call: on the short batches the paths send, the wrapper's host time is
+# most of a call
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_of(dev) -> int:
+    """The current stream of `dev`, as the C entry points take it."""
+    if _raw_stream is not None:
+        return _raw_stream(torch.cuda.current_device() if dev.index is None
+                           else dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def kmer_lookup_call(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
+                     min_count: int, n_probes: int = MAX_PROBES):
+    """The checked C call of kmer_lookup on CUDA tensors, not made: (C
+    function, its arguments, output tensor)."""
     dev = key_hi.device
     if dev.type != "cuda":
         raise ValueError(f"kmer_lookup: unsupported device {dev}")
     S = key_hi.shape[0]
-    Q = q_hi.shape[0]
     if S < 1 or S & (S - 1) or S > MAX_SLOTS:
         raise ValueError(f"kmer_lookup: table size {S} is not a power of two")
-    for t, name in ((key_hi, "key_hi"), (key_lo, "key_lo"),
-                    (counts, "counts")):
-        _check(t, name, torch.int32, (S,), dev)
+    entries = entries_ptr("kmer_lookup", key_hi, key_lo, counts)
+    Q = q_hi.shape[0]
     for t, name in ((q_hi, "q_hi"), (q_lo, "q_lo"), (q_slot, "q_slot")):
         _check(t, name, torch.int32, (Q,), dev)
     out = torch.empty(Q, dtype=torch.int32, device=dev)
-    fn = _lib("kmer_lookup").np2t_kmer_lookup
-    with torch.cuda.device(dev):
-        _launch("kmer_lookup", (bucket_pow2(Q, 1 << 12),), fn,
-                key_hi.data_ptr(), key_lo.data_ptr(),
-                counts.data_ptr(), q_hi.data_ptr(), q_lo.data_ptr(),
-                q_slot.data_ptr(), out.data_ptr(), Q, S - 1, int(min_count),
-                int(n_probes), torch.cuda.current_stream(dev).cuda_stream)
+    return (_fn("kmer_lookup"),
+            (entries, q_hi.data_ptr(), q_lo.data_ptr(), q_slot.data_ptr(),
+             out.data_ptr(), Q, S - 1, int(min_count), int(n_probes),
+             stream_of(dev)), out)
+
+
+def kmer_lookup(key_hi, key_lo, counts, q_hi, q_lo, q_slot, min_count: int,
+                n_probes: int = MAX_PROBES):
+    """[Q] queries -> [Q] counts (0 if absent or < min_count). Table planes
+    int32 [S] (S a power of two; on the card the columns of a
+    DeviceKmerTable's entries), queries int32 [Q] x 3. CPU tensors: the
+    plain twin; CUDA tensors: the kernel."""
+    if key_hi.device.type == "cpu":
+        return kmer_lookup_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
+                                 min_count, n_probes)
+    fn, args, out = kmer_lookup_call(key_hi, key_lo, counts, q_hi, q_lo,
+                                     q_slot, min_count, n_probes)
+    launch_on(key_hi.device, "kmer_lookup",
+              (bucket_pow2(out.shape[0], 1 << 12),), fn, *args)
     return out
+
+
+def launch_on(dev, name: str, shape, fn, *args) -> None:
+    """_launch with `dev` current (entered only when it is not already)."""
+    if dev.index == torch.cuda.current_device():
+        _launch(name, shape, fn, *args)
+    else:
+        with torch.cuda.device(dev):
+            _launch(name, shape, fn, *args)

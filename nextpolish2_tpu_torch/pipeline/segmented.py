@@ -66,8 +66,11 @@ from .windows import SegmentCutError, WindowOverflow
 
 
 def seg_len() -> int:
-    """Nominal segment length in bases (resident stream ~ seg_len * coverage
-    * ~24 B incl. sort buffers: 16 Mb at 30x is ~12 GB working set)."""
+    """Nominal segment length in bases. The peak RSS follows it, not the
+    contig: about 2.2 GB per Mi of segment plus 9.2 GB, some 70 B per
+    aligned base with two segments live at once (the lookahead); measured
+    on a 62.2 Mb contig at 30x on an H100 host, 44.6 GB at 16 Mi and 18.1
+    GB at 4 Mi (PERF.md)."""
     return int(os.environ.get("NP2_SEG_LEN", str(16 << 20)))
 
 

@@ -31,3 +31,41 @@ def test_cli_matches_jax_oracle(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "consensus_dp_plain" in res.stderr
     assert out.read_bytes() == ref.read_bytes()
+
+
+def _batch_line(cli_main, orchestrator, monkeypatch, capsys, tmp_path, tag,
+                extra=()):
+    """The 'Device batches' line that cli_main prints to stderr after a
+    polish() that reports a dense fallback (polish stubbed: it only fills
+    the batcher's stats)."""
+
+    def fake_polish(*args, stats, **kwargs):
+        stats.batches, stats.batch_fill, stats.csr_batches = 7, 0.96274, 5
+        stats.dense_reasons = {"no_csr_closure": 2}
+
+    monkeypatch.setattr(orchestrator, "polish", fake_polish)
+    argv = [f"{BASE}/slice.bam", f"{BASE}/slice.fa", f"{BASE}/k21.yak",
+            "-o", str(tmp_path / f"{tag}.fa"), *extra]
+    assert cli_main(argv) == 0
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("Device batches:")]
+    assert len(lines) == 1
+    return lines[0]
+
+
+def test_cli_batch_line_matches_jax(monkeypatch, capsys, tmp_path):
+    """The port's stderr line on the cross-contig batcher is the JAX CLI's,
+    character for character: lane fill to one decimal and the dense
+    fallbacks' reasons."""
+    from nextpolish2_tpu import cli as jax_cli
+    from nextpolish2_tpu.pipeline import orchestrator as jax_orch
+    from nextpolish2_tpu_torch import cli as port_cli
+    from nextpolish2_tpu_torch.pipeline import orchestrator as port_orch
+
+    got = _batch_line(port_cli.main, port_orch, monkeypatch, capsys,
+                      tmp_path, "port", ("--device", "cpu"))
+    want = _batch_line(jax_cli.main, jax_orch, monkeypatch, capsys, tmp_path,
+                       "jax")
+    assert got == want
+    assert got == ("Device batches: 7 (cross-contig lane fill 96.3%, 5 "
+                   "CSR-direct, dense fallbacks: {'no_csr_closure': 2})")

@@ -77,6 +77,48 @@ def test_device_table_build_equals_jax(name, packing):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("packing", ["numpy", "torch"])
+@pytest.mark.parametrize("name", YAKS)
+def test_slot_entries_equal_jax_planes(name, packing):
+    """The table is one int32 [S, 4] tensor of slot entries {key_hi, key_lo,
+    count, 0}: slot by slot the JAX build's three planes and a zero, with
+    key_hi, key_lo and counts as views of its columns (what the kernels'
+    16-byte probe reads); device_bytes counts 16 B of entry and a byte of
+    occupancy a slot, besides BUILD_BYTES_PER_KEY a key."""
+    port, jax_tab = _tables(name)
+    h = port.full_hashes()
+    want = jkt.DeviceKmerTable.build(jax_tab.full_hashes(),
+                                     jax_tab.counts.astype(np.int64),
+                                     jax_tab.ksize)
+    if packing == "numpy":
+        got = tkt.DeviceKmerTable.build(h, port.counts.astype(np.int64),
+                                        port.ksize)
+        entries = torch.from_numpy(got.entries)
+    else:
+        got = tkt.DeviceKmerTable.build_torch(h, port.counts, port.ksize,
+                                              "cpu")
+        entries = got.entries
+    assert entries.dtype == torch.int32 and entries.is_contiguous()
+    assert tuple(entries.shape) == (want.size, 4)
+    for col, plane in enumerate((want.key_hi, want.key_lo, want.counts)):
+        assert torch.equal(entries[:, col], _t(plane))
+    assert not entries[:, 3].any()
+    for col, view in enumerate((got.key_hi, got.key_lo, got.counts)):
+        view = torch.as_tensor(view)
+        assert view.data_ptr() == entries.data_ptr() + 4 * col
+        assert view.stride() == (4,)
+    if packing == "torch":
+        assert tkt.entries_ptr("test", got.key_hi, got.key_lo, got.counts) \
+            == entries.data_ptr()
+        with pytest.raises(ValueError, match="slot-entry"):
+            tkt.entries_ptr("test", got.key_hi.contiguous(), got.key_lo,
+                            got.counts)
+    n = len(h)
+    slots, need = tkt.DeviceKmerTable.device_bytes(n)
+    assert slots == want.size
+    assert need == entries.nbytes + slots + tkt.BUILD_BYTES_PER_KEY * n
+
+
 def _queries(port, rng, n=3000):
     """Present hashes, absent ones of the table's width, high-bit hashes
     (bit 63 and bit 31 set, so both planes are negative) and the empty
@@ -303,11 +345,11 @@ def test_table_over_the_device_limit_takes_host_route(monkeypatch, limit):
         port.device = "cuda"
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
         monkeypatch.setattr(torch.cuda, "mem_get_info",
-                            lambda dev: (2 * 101_237_055, 80 << 30))
+                            lambda dev: (2 * 105_431_359, 80 << 30))
         monkeypatch.setattr(torch.cuda, "memory_reserved", lambda dev: 0)
         monkeypatch.setattr(torch.cuda, "memory_allocated", lambda dev: 0)
         assert tkt.DeviceKmerTable.device_bytes(len(port.keys))[1] \
-            == 101_237_056
+            == 105_431_360
     before = dict(cc.LAUNCHES)
     np.testing.assert_array_equal(port.get(q, 3), host_get)
     np.testing.assert_array_equal(batch_min_kscores(seqs, port, 3),
