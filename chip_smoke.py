@@ -529,26 +529,30 @@ def device_trace(fn, n: int = TIMED_LAUNCHES) -> dict:
     a call, the sum over names of each one's mean duration (the trace's own
     stamps, so no host gap between launches counts; the mean keeps events
     the trace drops out of it). "not measured" where the trace holds no
-    device activity or the profiler cannot trace this card (a diagnostic:
-    the kernel checks are elsewhere)."""
+    device activity or the profiler cannot start on this card (a
+    diagnostic: the kernel checks are elsewhere). A failure of fn itself
+    propagates."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        ops: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                ops.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        prof.start()
     except RuntimeError as e:
         return {"device_ops_per_call": f"not measured: {e}",
                 "device_ms": None}
+    try:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    ops: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ops.setdefault(e.name, []).append(e.time_range.elapsed_us())
     if not ops:
         return {"device_ops_per_call": "not measured: no device activity "
                 "in the trace", "device_ms": None}
@@ -776,15 +780,8 @@ def kmer_phase(dev) -> dict:
     from nextpolish2_tpu_torch.io.fastx import read_fastx
     from nextpolish2_tpu_torch.io.yak import KMER_DEVICE_MIN
     from nextpolish2_tpu_torch.models.oracle_lq import KMER_SCORE_DEVICE_MIN
-    from nextpolish2_tpu_torch.ops.kmer_table import stream_of
 
     t0 = time.time()
-    # the wrappers' stream handle is the current stream's, also off the
-    # default one
-    for s in (None, torch.cuda.Stream(dev)):
-        with torch.cuda.stream(s):
-            if stream_of(dev) != torch.cuda.current_stream(dev).cuda_stream:
-                fail("kmer_table.stream_of != the current stream's handle")
     km = kmer_setup(dev)
     rng = np.random.default_rng(11)
     rows, routes = {}, {"lookup": [], "score": []}

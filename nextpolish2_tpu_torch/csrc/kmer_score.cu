@@ -252,12 +252,19 @@ kmer_score_kernel(const int4* __restrict__ tab,
   }
 
   // the last warp to finish zeroes the strip-crossing alleles that no
-  // valid position reached
+  // valid position reached. Each lane fences its own stores to out[] and
+  // cross[]; the __syncwarp then orders every lane's fence before lane 0's
+  // counter bump (a fence orders only its own thread's writes), as in the
+  // threadFenceReduction pattern with the warp for the block
   __threadfence();
+  __syncwarp();
   unsigned done = 0;
   if (lane == 0) done = atomicAdd(counter, 1u) + 1u;  // counter starts at -1
   done = (unsigned)__shfl_sync(kFull, (int)done, 0);
   if (done == (unsigned)n_warps - 1u) {
+    // lane 0 saw every other warp's bump; the barrier and fence order its
+    // observation before every lane's reads below
+    __syncwarp();
     __threadfence();
     for (int s = lane; s < n_strips; s += 32) {
       const int sid = __ldcg(cross + s);

@@ -29,7 +29,7 @@ import torch
 from ..utils.torchcfg import bucket_pow2
 from .consensus_cuda import _check, _count, _fn
 from .kmer_table import (MAX_PROBES, MAX_SLOTS, _low32, entries_ptr,
-                         launch_on, probe_plain, stream_of)
+                         launch_on, probe_plain)
 
 SEP_CODE = 5  # joined-stream separator; any code >= 4 is an invalid base
 # end positions a warp of the kernel below 2^19 bases (32 * kShortRun,
@@ -122,7 +122,7 @@ def kmer_min_scores_call(key_hi, key_lo, counts, codes, starts, ksize: int,
     return (_fn("kmer_score"),
             (entries, codes.data_ptr(), starts.data_ptr(), buf.data_ptr(), L,
              S, int(ksize), size - 1, int(min_count), int(n_probes), n,
-             stream_of(dev)), buf[:S])
+             torch.cuda.current_stream(dev).cuda_stream), buf[:S])
 
 
 def kmer_min_scores(key_hi, key_lo, counts, codes, starts, ksize: int,

@@ -21,7 +21,6 @@ one to consensus_cuda.LAUNCHES["kmer_lookup"].
 
 from __future__ import annotations
 
-import weakref
 from dataclasses import dataclass
 from typing import Union
 
@@ -260,45 +259,20 @@ def kmer_lookup_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
     return torch.where(out >= min_count, out, 0)
 
 
-# id(key_hi) -> (weak references to the three planes, entries address):
-# the plane triples entries_ptr has checked, each dropped with its key_hi
-_checked: dict = {}
-
-
 def entries_ptr(name: str, key_hi, key_lo, counts) -> int:
     """Address of the [S, 4] slot entries whose columns 0-2 the three
-    planes are (DeviceKmerTable's layout, whose shape and type its build
-    fixes); raises where they are not. Checked once per triple of plane
-    tensors: a table's later calls find it here."""
-    hit = _checked.get(id(key_hi))
-    if (hit is not None and hit[0]() is key_hi and hit[1]() is key_lo
-            and hit[2]() is counts):
-        return hit[3]
+    planes are (DeviceKmerTable's layout); raises where they are not."""
     p = key_hi.data_ptr()
-    if (key_hi.dtype != torch.int32 or key_hi.stride() != (4,)
+    if (key_hi.dtype != torch.int32 or key_lo.dtype != torch.int32
+            or counts.dtype != torch.int32
+            or key_lo.shape != key_hi.shape or counts.shape != key_hi.shape
+            or key_hi.stride() != (4,)
             or key_lo.stride() != (4,) or counts.stride() != (4,)
             or key_lo.data_ptr() != p + 4 or counts.data_ptr() != p + 8
             or p % 16):
         raise ValueError(f"{name}: the table planes are not the columns of "
                          "one int32 [S, 4] slot-entry tensor")
-    key = id(key_hi)
-    _checked[key] = (weakref.ref(key_hi, lambda _: _checked.pop(key, None)),
-                     weakref.ref(key_lo), weakref.ref(counts), p)
     return p
-
-
-# the current stream's handle, without building a Stream object on every
-# call: on the short batches the paths send, the wrapper's host time is
-# most of a call
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
-def stream_of(dev) -> int:
-    """The current stream of `dev`, as the C entry points take it."""
-    if _raw_stream is not None:
-        return _raw_stream(torch.cuda.current_device() if dev.index is None
-                           else dev.index)
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def kmer_lookup_call(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
@@ -319,7 +293,7 @@ def kmer_lookup_call(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
     return (_fn("kmer_lookup"),
             (entries, q_hi.data_ptr(), q_lo.data_ptr(), q_slot.data_ptr(),
              out.data_ptr(), Q, S - 1, int(min_count), int(n_probes),
-             stream_of(dev)), out)
+             torch.cuda.current_stream(dev).cuda_stream), out)
 
 
 def kmer_lookup(key_hi, key_lo, counts, q_hi, q_lo, q_slot, min_count: int,
@@ -339,9 +313,6 @@ def kmer_lookup(key_hi, key_lo, counts, q_hi, q_lo, q_slot, min_count: int,
 
 
 def launch_on(dev, name: str, shape, fn, *args) -> None:
-    """_launch with `dev` current (entered only when it is not already)."""
-    if dev.index == torch.cuda.current_device():
+    """_launch with `dev` the current device."""
+    with torch.cuda.device(dev):
         _launch(name, shape, fn, *args)
-    else:
-        with torch.cuda.device(dev):
-            _launch(name, shape, fn, *args)
