@@ -64,12 +64,33 @@ line):
      k-mer routes forced onto the card (kmer_lookup must launch; E. coli
      has no allele longer than k, so the scorer has no batch there), equal
      to ecoli.truth.fa, its launch counts set to 0 before and read after
-     in the child like every other path's.
+     in the child like every other path's;
+  11. the sharded lookup kernel_lookup_sharded (which replaces the JAX
+     package's make_sharded_lookup) on E. coli's table in 2 shards at 2^12,
+     2^20 and 2^22 queries: each shard's launch bit for bit against its
+     twin, and the shards' sum against kmer_lookup on the unsharded table;
+     shard 0's call, kernel-only and device time, bound (20 B a query and a
+     32 B sector a probe of the queries it owns) and searchsorted
+     yardstick;
+  12. the mesh path on a 4x2 mesh of the one card repeated (its positions
+     run in turn): the slice under the default variant, "base" and "dynk",
+     E. coli, and m20 at -t 8 through the batcher, each equal to its golden
+     or truth, every 'win' position having run its rows, and every get()
+     batch of 256 queries or more taken by the sharded table (kmer positions
+     and kernel checked); then batcher runs forced onto the sparse format
+     under the mesh (no CSR closure: ops.consensus.
+     dp_backtrack_sparse_packed) and onto one device by a 3x1 mesh that
+     divides no batch (shape_misalign), each equal to the unsharded rows;
+  13. two CLI processes sharing the card (NP2_COORDINATOR on a free
+     loopback port, each under its own timeout) polish m20 into two shards
+     that process 0 merges: equal to m20.truth.fa, no sentinel left;
+  14. the slice through the CLI with --profile-dir: equal to its golden,
+     and the trace names the DP and backtrack kernels.
 Every path is driven with the launch counts set to 0 just before it and read
 just after. Then one JSON line of per-kernel numbers (launches per polish()
-path of phases 3-6 and 8-10 and their sum; phase 7's counts, and those of
-the whole-contig child, stay in their own lines), the seconds at the end of
-each phase, the card line, and the result line.
+path of phases 3-6, 8-10, 12 and 14 and their sum; the batcher checks'
+counts, and those of the whole-contig child, stay in their own lines), the
+seconds at the end of each phase, the card line, and the result line.
 """
 
 from __future__ import annotations
@@ -82,6 +103,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -98,10 +120,13 @@ DP_SHAPES = [(8, 512, 1280), (8, 128, 1280), (8, 128, 2560),
 KERNELS = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk",
            "backtrack_packed")
 KMER_KERNELS = ("kmer_lookup", "kmer_min_scores")
+SHARDED = "kmer_lookup_sharded"
 TWINS = ("consensus_dp_plain", "consensus_dp_base_plain",
          "consensus_dp_dynk_plain", "backtrack_plain", "kmer_lookup_plain",
-         "kmer_min_scores_plain")
+         "kmer_min_scores_plain", "kmer_lookup_sharded_plain")
 LOOKUP_SIZES = [1 << e for e in range(12, 23, 2)]   # queries
+SHARDED_SIZES = [1 << 12, 1 << 20, 1 << 22]          # queries
+MESH = (4, 2)     # win x kmer positions of the mesh phases, on one card
 SCORE_SIZES = [1 << e for e in range(12, 25, 2)]    # bases of an allele batch
 # the host routes run to this size only: past the crossovers (2^16-2^18
 # with the device build counted), where they take seconds
@@ -566,6 +591,8 @@ def kmer_row(name: str, n: int, err: int, ms: float, plain_ms: float,
     t_ops = nops / PEAK_OPS_PER_S * 1e3
     src = {"kmer_lookup": ("kmer_lookup.cu",
                            "nextpolish2_tpu/ops/kmer_table.py:120"),
+           SHARDED: ("kmer_lookup.cu",
+                     "nextpolish2_tpu/parallel/sharded_kmer.py:84"),
            "kmer_min_scores": ("kmer_score.cu",
                                "nextpolish2_tpu/ops/kmer_score.py:93")}[name]
     return {"name": name, "shape": {"N": n}, "route": "cuda",
@@ -1018,37 +1045,14 @@ def dense_fallback_check(src: dict, dev, dp_variant: str, n: int) -> dict:
     format (reason no_csr_closure) and give the first run's rows."""
     import numpy as np
 
-    from nextpolish2_tpu_torch.pipeline.batcher import DeviceBatcher
-    from nextpolish2_tpu_torch.pipeline.engine import (K_SMALL,
-                                                       resolve_dp_variants)
-    from nextpolish2_tpu_torch.pipeline.windows import (aggregate_csr_parts,
-                                                        aggregate_host)
+    from nextpolish2_tpu_torch.pipeline.engine import K_SMALL
 
-    wb = src["wb"]
-    lead, seed, last = src["anchors"]
     ids_all = np.nonzero((src["span"] <= NARROW_W)
                          & (src["ktier"] == K_SMALL))[0][:n]
-    SUB = 32
     rows, stats = {}, {}
     for with_csr in (True, False):
-        b = DeviceBatcher(dev, resolve_dp_variants(dp_variant))
-        try:
-            futs = []
-            for c0 in range(0, len(ids_all), SUB):
-                ids = ids_all[c0 : c0 + SUB]
-                futs.append(b.submit(
-                    (NARROW_W, K_SMALL), len(ids),
-                    lambda ids=ids: aggregate_host(
-                        wb, K_SMALL, width=NARROW_W, n_windows=len(ids),
-                        win_idx=ids),
-                    lead[ids], seed[ids], last[ids],
-                    aggregate_csr=(lambda lo, hi, ids=ids: aggregate_csr_parts(
-                        wb, K_SMALL, width=NARROW_W, n_windows=hi - lo,
-                        win_idx=ids[lo:hi])) if with_csr else None))
-            rows[with_csr] = [w for f in futs for w in f.result(timeout=300)]
-        finally:
-            b.shutdown()
-        stats[with_csr] = b.stats
+        stats[with_csr], rows[with_csr] = batcher_rows(src, dev, ids_all,
+                                                       with_csr, dp_variant)
     st = stats[False]
     if st.batches == 0 or st.csr_batches != 0 or \
             st.dense_reasons != {"no_csr_closure": st.batches}:
@@ -1067,6 +1071,392 @@ def dense_fallback_check(src: dict, dev, dp_variant: str, n: int) -> dict:
             "dense_batches": st.batches, "dense_fill": st.fill,
             "dense_reasons": st.dense_reasons,
             "csr_batches": stats[True].batches}
+
+
+def lookup_queries(km: dict, Q: int, rng):
+    """Q queries of the phase 2b mix: half present, half absent."""
+    import numpy as np
+
+    q = np.concatenate([rng.choice(km["hashes"], Q // 2),
+                        rng.integers(0, 1 << 42, Q - Q // 2,
+                                     dtype=np.uint64)])
+    rng.shuffle(q)
+    return q
+
+
+def sharded_setup(km: dict, dev) -> dict:
+    """E. coli's table in MESH[1] shards (the numpy build KmerTable.
+    get_sharded makes), on a 1 x MESH[1] mesh of `dev`, with each shard's
+    sorted composite keys on the card for the yardstick."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.parallel.mesh import make_mesh
+    from nextpolish2_tpu_torch.parallel.sharded_kmer import (
+        SHARD_BITS_SHIFT, ShardedKmerTable)
+
+    table, h = km["table"], km["hashes"]
+    n = MESH[1]
+    t0 = time.time()
+    tab = ShardedKmerTable.build(h, table.counts.astype(np.int64),
+                                 table.ksize, n)
+    build_s = time.time() - t0
+    planes = tab.put(make_mesh(1, n, devices=[dev] * n))
+    shard_of = (h >> np.uint64(SHARD_BITS_SHIFT)) % np.uint64(n)
+    comp = [torch.from_numpy((table.composite[shard_of == s] ^ km["flip"])
+                             .view(np.int64)).to(dev) for s in range(n)]
+    cnts = [torch.from_numpy(table.counts[shard_of == s].astype(np.int32))
+            .to(dev) for s in range(n)]
+    return {"tab": tab, "planes": planes, "comp": comp, "cnts": cnts,
+            "info": {"shards": n, "shard_size": tab.shard_size,
+                     "n_probes": tab.n_probes, "numpy_build_s": build_s}}
+
+
+def measure_lookup_sharded(km: dict, sh: dict, Q: int, dev, rng,
+                           unsharded: dict) -> dict:
+    """kmer_lookup_sharded on every shard against its twin, and the shards'
+    sum against kmer_lookup on the unsharded table, bit for bit (min_count 5
+    and 7), on Q queries of the phase 2b mix; shard 0's call time,
+    kernel-only time, device time, bound and yardstick (searchsorted on the
+    shard's sorted keys, the queries of other shards masked), beside
+    kmer_lookup's call time at Q (`unsharded`: phase 2b's rows)."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.ops.kmer_table import (
+        kmer_lookup, kmer_lookup_sharded, kmer_lookup_sharded_call,
+        kmer_lookup_sharded_plain, probe_plain)
+
+    tab, (shi, slo, sct) = sh["tab"], sh["planes"]
+    utab, (hi, lo, ct) = km["tab"], km["planes"]
+    q = lookup_queries(km, Q, rng)
+    qd = [torch.from_numpy(a).to(dev) for a in tab.query_host_arrays(q)]
+    qu = [torch.from_numpy(a).to(dev) for a in utab.query_host_arrays(q)]
+    for mc in (5, 7):
+        rest = kmer_lookup(hi, lo, ct, *qu, mc, utab.n_probes)
+        for s in range(tab.n_shards):
+            got = kmer_lookup_sharded(shi[s], slo[s], sct[s], *qd, s, mc,
+                                      tab.n_probes)
+            want = kmer_lookup_sharded_plain(shi[s], slo[s], sct[s], *qd, s,
+                                             mc, tab.n_probes)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{SHARDED} != its twin at Q={Q}, shard {s}, "
+                     f"min_count={mc}")
+            rest = rest - got
+        torch.cuda.synchronize()
+        if rest.any():
+            fail(f"the {tab.n_shards} shards' sum != kmer_lookup at Q={Q}, "
+                 f"min_count={mc}")
+    owned = qd[3] == 0
+    probes = int(probe_plain(shi[0], slo[0], sct[0], *qd[:3],
+                             tab.n_probes)[1][owned].sum())
+    qc = torch.from_numpy(((((q & np.uint64(km["table"].pmask))
+                             << np.uint64(54)) | (q >> np.uint64(10)))
+                           ^ km["flip"]).view(np.int64)).to(dev)
+    comp, cnts = sh["comp"][0], sh["cnts"][0]
+
+    def library():
+        idx = torch.searchsorted(comp, qc).clamp_(max=comp.shape[0] - 1)
+        out = torch.where((comp[idx] == qc) & owned, cnts[idx], 0)
+        return torch.where(out >= 5, out, 0)
+
+    if not torch.equal(library(), kmer_lookup_sharded(
+            shi[0], slo[0], sct[0], *qd, 0, 5, tab.n_probes)):
+        fail(f"searchsorted yardstick != {SHARDED} at Q={Q}")
+
+    def call():
+        return kmer_lookup_sharded(shi[0], slo[0], sct[0], *qd, 0, 5,
+                                   tab.n_probes)
+
+    return kmer_row(
+        SHARDED, Q, 0, median_ms(call, TIMED_LAUNCHES),
+        median_ms(lambda: kmer_lookup_sharded_plain(
+            shi[0], slo[0], sct[0], *qd, 0, 5, tab.n_probes), PLAIN_RUNS),
+        Q * 20 + 32 * probes, 11 * Q + 8 * probes,
+        median_ms(library, TIMED_LAUNCHES), shard=0, shards=tab.n_shards,
+        owned=int(owned.sum()), probes=probes,
+        kernel_ms=entry_ms(SHARDED, kmer_lookup_sharded_call(
+            shi[0], slo[0], sct[0], *qd, 0, 5, tab.n_probes)),
+        unsharded_kmer_lookup_ms=unsharded.get(("kmer_lookup", Q),
+                                               {}).get("ms"),
+        **device_trace(call))
+
+
+def sharded_phase(kmer: dict, dev) -> dict:
+    """Phase 11: the sharded lookup at SHARDED_SIZES. Returns
+    {(name, N): row} and the setup for later sizes."""
+    import numpy as np
+
+    t0 = time.time()
+    sh = sharded_setup(kmer["km"], dev)
+    rng = np.random.default_rng(13)
+    rows = {(SHARDED, Q): measure_lookup_sharded(kmer["km"], sh, Q, dev, rng,
+                                                 kmer["rows"])
+            for Q in SHARDED_SIZES}
+    print(json.dumps({"phase": "kmer_lookup_sharded_vs_plain",
+                      "seconds": time.time() - t0, "table": sh["info"],
+                      "rows": list(rows.values())}), flush=True)
+    return {"rows": rows, "sh": sh}
+
+
+@contextlib.contextmanager
+def mesh_run(n_win: int, n_kmer: int, dev):
+    """An active n_win x n_kmer mesh of `dev` repeated for a block, the
+    position counts at 0 before it; yields the batch sizes KmerTable.get
+    was called with inside it."""
+    import numpy as np
+
+    from nextpolish2_tpu_torch.io.yak import KmerTable
+    from nextpolish2_tpu_torch.parallel import mesh as pm
+
+    sizes: list = []
+    orig = KmerTable.get
+
+    def get(self, hashes, min_count=0):
+        sizes.append(len(np.atleast_1d(hashes)))
+        return orig(self, hashes, min_count)
+
+    KmerTable.get = get
+    pm.set_active_mesh(pm.make_mesh(n_win, n_kmer,
+                                    devices=[dev] * (n_win * n_kmer)))
+    pm.reset_position_counts()
+    try:
+        yield sizes
+    finally:
+        pm.set_active_mesh(None)
+        KmerTable.get = orig
+
+
+def mesh_path(paths: "Paths", phase: str, must: tuple, must_not: tuple, fn,
+              dev, keep: bool = True) -> dict:
+    """One path of phase 12 on the MESH mesh: every 'win' position must
+    have run, and every get() batch of 256 queries or more must have gone
+    to the sharded table (SHARDED_LOOKUPS counts them; every 'kmer'
+    position and kmer_lookup_sharded ran for them)."""
+    from nextpolish2_tpu_torch.io import yak
+    from nextpolish2_tpu_torch.parallel import mesh as pm
+
+    n_win, n_kmer = MESH
+    before = yak.SHARDED_LOOKUPS
+    with mesh_run(n_win, n_kmer, dev) as sizes:
+        res = paths.run(phase, must, must_not, fn, keep=keep)
+        runs = dict(pm.POSITION_RUNS)
+    big = sum(n >= 256 for n in sizes)
+    sharded = yak.SHARDED_LOOKUPS - before
+    if sharded != big:
+        fail(f"{phase}: {big} get() batches of 256 or more queries, "
+             f"{sharded} sharded lookups")
+    for i in range(n_win):
+        if not runs.get(("win", i)):
+            fail(f"{phase}: 'win' position {i} ran no rows")
+    if big and (not all(runs.get(("kmer", s)) for s in range(n_kmer))
+                or not res["launches"].get(SHARDED)):
+        fail(f"{phase}: the sharded lookups skipped a 'kmer' position or "
+             f"its kernel")
+    out = {"phase": phase + "_mesh", "mesh": f"{n_win}x{n_kmer}",
+           "get_batches": len(sizes), "get_batches_256_up": big,
+           "sharded_lookups": sharded,
+           "position_runs": {f"{a}{i}": n for (a, i), n
+                             in sorted(runs.items())}}
+    print(json.dumps(out), flush=True)
+    return {**res, **out}
+
+
+def batcher_rows(src: dict, dev, ids, with_csr: bool,
+                 dp_variant: str = "v2") -> tuple:
+    """The windows `ids` of `src` (narrow, K=8) through one DeviceBatcher,
+    with or without their CSR closures: (stats, per-window rows)."""
+    from nextpolish2_tpu_torch.pipeline.batcher import DeviceBatcher
+    from nextpolish2_tpu_torch.pipeline.engine import (K_SMALL,
+                                                       resolve_dp_variants)
+    from nextpolish2_tpu_torch.pipeline.windows import (aggregate_csr_parts,
+                                                        aggregate_host)
+
+    wb = src["wb"]
+    lead, seed, last = src["anchors"]
+    b = DeviceBatcher(dev, resolve_dp_variants(dp_variant))
+    try:
+        futs = []
+        for c0 in range(0, len(ids), 32):
+            sub = ids[c0 : c0 + 32]
+            futs.append(b.submit(
+                (NARROW_W, K_SMALL), len(sub),
+                lambda sub=sub: aggregate_host(
+                    wb, K_SMALL, width=NARROW_W, n_windows=len(sub),
+                    win_idx=sub),
+                lead[sub], seed[sub], last[sub],
+                aggregate_csr=(lambda lo, hi, sub=sub: aggregate_csr_parts(
+                    wb, K_SMALL, width=NARROW_W, n_windows=hi - lo,
+                    win_idx=sub[lo:hi])) if with_csr else None))
+        rows = [w for f in futs for w in f.result(timeout=300)]
+    finally:
+        b.shutdown()
+    return b.stats, rows
+
+
+def mesh_batcher_check(src: dict, dev, n: int, mesh: tuple,
+                       with_csr: bool, reason: str) -> dict:
+    """The first n narrow K=8 windows of `src` through a batcher without a
+    mesh (CSR-direct, one device), then under an active `mesh` (with or
+    without CSR closures): every batch of the second run must fall back to
+    dense for `reason`, and give the first run's rows. no_csr_closure under
+    a mesh takes the sparse format, sharded (dp_backtrack_sparse_packed
+    must run once a batch); shape_misalign runs on one device."""
+    import numpy as np
+
+    from nextpolish2_tpu_torch.parallel import mesh as pm
+    from nextpolish2_tpu_torch.pipeline import engine
+    from nextpolish2_tpu_torch.pipeline.engine import K_SMALL
+
+    ids = np.nonzero((src["span"] <= NARROW_W)
+                     & (src["ktier"] == K_SMALL))[0][:n]
+    ref_stats, want = batcher_rows(src, dev, ids, True)
+    sparse_calls = [0]
+    orig = engine.dp_backtrack_sparse_packed
+
+    def counted(*a, **kw):
+        sparse_calls[0] += 1
+        return orig(*a, **kw)
+
+    engine.dp_backtrack_sparse_packed = counted
+    try:
+        with mesh_run(*mesh, dev):
+            stats, rows = batcher_rows(src, dev, ids, with_csr)
+            runs = dict(pm.POSITION_RUNS)
+    finally:
+        engine.dp_backtrack_sparse_packed = orig
+    if stats.batches == 0 or stats.csr_batches != 0 or \
+            stats.dense_reasons != {reason: stats.batches}:
+        fail(f"mesh batcher ({reason}): {stats.batches} batches, "
+             f"{stats.csr_batches} CSR, {stats.dense_reasons}")
+    win = {k: v for k, v in runs.items() if k[0] == "win"}
+    sharded = reason == "no_csr_closure"
+    if sharded and (sparse_calls[0] != stats.batches or win != {
+            ("win", i): stats.batches for i in range(mesh[0])}):
+        fail(f"mesh batcher: {sparse_calls[0]} sparse dispatches and "
+             f"positions {win} for {stats.batches} batches")
+    if not sharded and (win or sparse_calls[0]):
+        fail(f"misaligned batches ran sharded: {win}")
+    if len(rows) != len(ids) or len(want) != len(ids):
+        fail("batcher returned the wrong number of windows")
+    for wa, wb_ in zip(rows, want):
+        for xa, xb in zip(wa, wb_):
+            if not np.array_equal(xa, xb):
+                fail(f"mesh batcher rows ({reason}) differ from the "
+                     "unsharded CSR rows")
+    return {"mesh": "{}x{}".format(*mesh), "n_windows": len(ids),
+            "batches": stats.batches, "fill": stats.fill,
+            "dense_reasons": stats.dense_reasons,
+            "sparse_dispatches": sparse_calls[0],
+            "reference_csr_batches": ref_stats.csr_batches,
+            "position_runs": {f"{a}{i}": v for (a, i), v
+                              in sorted(runs.items())}}
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def fasta_equal(path: str, truth: str) -> int:
+    """Records of `path` against `truth` (names and sequences, in order);
+    fails on a difference. Returns the record count."""
+    from nextpolish2_tpu_torch.io.fastx import read_fastx
+
+    got = list(read_fastx(path))
+    want = list(read_fastx(os.path.join(DATA, truth)))
+    if [n for n, _ in got] != [n for n, _ in want]:
+        fail(f"{path}: contig names or order differ from {truth}")
+    for (name, g), (_, w) in zip(got, want):
+        if g != w:
+            fail(f"{path}: {name} differs from {truth}")
+    return len(got)
+
+
+def two_process_phase(work: str) -> dict:
+    """Phase 13: two CLI processes on the one card split m20's contigs
+    (NP2_COORDINATOR on a free loopback port); process 0 merges the shards.
+    Each process has its own timeout and is killed past it."""
+    out = os.path.join(work, "m20.merged.fa")
+    port = free_port()
+    t0 = time.time()
+    procs = []
+    for h in range(2):
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   NP2_COORDINATOR=f"127.0.0.1:{port}",
+                   NP2_NUM_PROCESSES="2", NP2_PROCESS_ID=str(h),
+                   NP2_MERGE_TIMEOUT_S="240")
+        env.pop("NP2_NO_AUTOMERGE", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "nextpolish2_tpu_torch.cli",
+             os.path.join(DATA, "m20.bam"), os.path.join(DATA, "m20.fa"),
+             os.path.join(DATA, "m20.k21.yak"), "-L", "1000", "-t", "4",
+             "-o", out], env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    errs = []
+    for h, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            _, err = p.communicate()
+            errs.append(f"process {h} timed out:\n{err[-3000:]}")
+            continue
+        if p.returncode != 0:
+            errs.append(f"process {h} exited {p.returncode}:\n{err[-3000:]}")
+        elif h == 0 and "merged 2 host shards" not in err:
+            errs.append(f"process 0 did not merge:\n{err[-3000:]}")
+    wall = time.time() - t0
+    if errs:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        fail("two-process CLI run: " + "\n".join(errs))
+    n = fasta_equal(out, "m20.truth.fa")
+    left = [f for f in os.listdir(work) if f.endswith(".done")]
+    shards = sorted(f for f in os.listdir(work) if ".shard" in f)
+    if left or shards != ["m20.merged.fa.shard0", "m20.merged.fa.shard1"]:
+        fail(f"two-process CLI run left {left}, shards {shards}")
+    res = {"phase": "cli_two_processes", "wall_s": wall, "processes": 2,
+           "contigs": n, "identical_to": "m20.truth.fa"}
+    print(json.dumps(res), flush=True)
+    return res
+
+
+def profile_cli_check(work: str) -> dict:
+    """Phase 14's path: the slice through the CLI with --profile-dir (in
+    this process); the output must equal the golden and the Chrome trace
+    name the DP and backtrack kernels."""
+    from nextpolish2_tpu_torch import cli
+
+    prof = os.path.join(work, "prof")
+    out = os.path.join(work, "slice.fa")
+    t0 = time.time()
+    rc = cli.main([os.path.join(DATA, "slice.bam"),
+                   os.path.join(DATA, "slice.fa"),
+                   os.path.join(DATA, "k21.yak"),
+                   os.path.join(DATA, "k31.yak"), "-L", "1000",
+                   "--profile-dir", prof, "-o", out])
+    wall = time.time() - t0
+    if rc != 0:
+        fail(f"CLI with --profile-dir exited {rc}")
+    fasta_equal(out, "slice.golden.fa")
+    traces = os.listdir(prof)
+    if len(traces) != 1:
+        fail(f"--profile-dir wrote {traces}")
+    with open(os.path.join(prof, traces[0])) as f:
+        text = f.read()
+    names = {k: text.count(k) for k in ("dp_v2_kernel", "backtrack_kernel")}
+    if not all(names.values()):
+        fail(f"the trace lacks a kernel: {names}")
+    return {"wall_s": wall, "trace": traces[0], "trace_bytes": len(text),
+            "kernel_mentions": names}
 
 
 def with_env(values: dict, fn, *args, **kw):
@@ -1154,7 +1544,7 @@ def main() -> int:
     # on every bundled contig, and no contig is long enough to segment)
     paths = Paths()
     dp_all = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk")
-    off = KMER_KERNELS
+    off = KMER_KERNELS + (SHARDED,)
     paths.run(
         "main_path_ecoli", ("consensus_dp_v2", "backtrack_packed"),
         ("consensus_dp_base", "consensus_dp_dynk") + off,
@@ -1203,12 +1593,12 @@ def main() -> int:
     # phase 7: the batcher's dense fallback on the card
     paths.run(
         "batcher_dense_fallback_v2", ("consensus_dp_v2", "backtrack_packed"),
-        ("consensus_dp_base", "consensus_dp_dynk"),
+        ("consensus_dp_base", "consensus_dp_dynk", SHARDED),
         lambda: dense_fallback_check(sources[0], dev, "v2", 640), keep=False)
     paths.run(
         "batcher_dense_fallback_dynk",
         ("consensus_dp_v2", "consensus_dp_dynk", "backtrack_packed"),
-        ("consensus_dp_base",),
+        ("consensus_dp_base", SHARDED),
         lambda: dense_fallback_check(sources[0], dev, "dynk", 640),
         keep=False)
     lap("7_dense_fallback")
@@ -1219,7 +1609,7 @@ def main() -> int:
     paths.run(
         "slice_segmented_device_kmer",
         ("consensus_dp_v2", "backtrack_packed") + KMER_KERNELS,
-        ("consensus_dp_base", "consensus_dp_dynk"),
+        ("consensus_dp_base", "consensus_dp_dynk", SHARDED),
         lambda: with_env({"NP2_SEG_FORCE": 1, "NP2_SEG_LEN": 5000,
                           "NP2_KMER_DEVICE_MIN": 1,
                           "NP2_KMER_SCORE_DEVICE_MIN": 1}, polish_check,
@@ -1247,6 +1637,55 @@ def main() -> int:
     memory_phase(paths)
     lap("10_ecoli_children")
 
+    # phase 11: the sharded lookup kernel on E. coli's table in 2 shards
+    shk = sharded_phase(kmer, dev)
+    rows.update(shk["rows"])
+    lap("11_sharded_lookup")
+
+    # phase 12: the mesh path, MESH positions of the one card
+    with_v2 = ("consensus_dp_v2", "backtrack_packed")
+    not_v2 = ("consensus_dp_base", "consensus_dp_dynk") + KMER_KERNELS
+    slice_yaks = ("slice.fa", "slice.bam", ["k21.yak", "k31.yak"],
+                  "slice.golden.fa", "cuda")
+    mesh_path(paths, "mesh_slice", with_v2, not_v2,
+              lambda: polish_check(*slice_yaks), dev)
+    mesh_path(paths, "mesh_slice_base",
+              ("consensus_dp_base", "backtrack_packed"),
+              ("consensus_dp_v2", "consensus_dp_dynk") + KMER_KERNELS,
+              lambda: polish_check(*slice_yaks, dp_variant="base"), dev)
+    mesh_path(paths, "mesh_slice_dynk",
+              ("consensus_dp_dynk", "backtrack_packed"),
+              ("consensus_dp_v2", "consensus_dp_base") + KMER_KERNELS,
+              lambda: polish_check(*slice_yaks, dp_variant="dynk"), dev)
+    mesh_path(paths, "mesh_ecoli", with_v2, not_v2,
+              lambda: polish_check("ecoli.fa", "ecoli.bam",
+                                   ["ecoli.k21.yak"], "ecoli.truth.fa",
+                                   "cuda"), dev)
+    res = mesh_path(paths, "mesh_m20_t8", with_v2, not_v2,
+                    lambda: polish_check("m20.fa", "m20.bam",
+                                         ["m20.k21.yak"], "m20.truth.fa",
+                                         "cuda", threads=8), dev)
+    if res["contigs"] != 20 or res["batches"] == 0 or \
+            res["csr_batches"] != res["batches"]:
+        fail(f"m20 -t 8 under the mesh: {res['csr_batches']}/"
+             f"{res['batches']} batches CSR-direct, {res['contigs']} contigs")
+    paths.run("mesh_batcher_sparse_fallback", with_v2, not_v2 + (SHARDED,),
+              lambda: mesh_batcher_check(sources[0], dev, 640, MESH, False,
+                                         "no_csr_closure"), keep=False)
+    paths.run("mesh_batcher_shape_misalign", with_v2, not_v2 + (SHARDED,),
+              lambda: mesh_batcher_check(sources[0], dev, 200, (3, 1), True,
+                                         "shape_misalign"), keep=False)
+    lap("12_mesh_paths")
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=HERE) as work:
+        # phase 13: two CLI processes share the card and split m20
+        two_process_phase(work)
+        lap("13_cli_two_processes")
+        # phase 14: the CLI's --profile-dir on the slice
+        paths.run("cli_profile_slice", with_v2, not_v2 + (SHARDED,),
+                  lambda: profile_cli_check(work))
+        lap("14_cli_profile")
+
     # any other shape a path launched gets measured too (the twins once)
     for key in sorted(paths.shapes):
         if key in rows:
@@ -1257,6 +1696,10 @@ def main() -> int:
         elif key[0] == "kmer_lookup":
             rows[key] = measure_lookup(kmer["km"], key[1], dev,
                                        np.random.default_rng(12))[0]
+        elif key[0] == SHARDED:
+            rows[key] = measure_lookup_sharded(
+                kmer["km"], shk["sh"], key[1], dev,
+                np.random.default_rng(12), rows)
         else:
             row = measure_score(kmer["km"], kmer["seq"], key[1], dev,
                                 np.random.default_rng(12), set())[0]
@@ -1266,10 +1709,10 @@ def main() -> int:
         r["launches_by_path"] = {phase: by_shape[key] for phase, by_shape
                                  in paths.by_path.items() if key in by_shape}
         r["launches"] = sum(r["launches_by_path"].values())
-    for name in dp_all + ("backtrack_packed",) + KMER_KERNELS:
+    for name in dp_all + ("backtrack_packed",) + KMER_KERNELS + (SHARDED,):
         if not any(r["launches"] for k, r in rows.items() if k[0] == name):
             fail(f"{name} was launched on no path")
-    lap("11_other_shapes")
+    lap("15_other_shapes")
 
     print(json.dumps({"phase": "timeline", "seconds_at_end": TIMELINE}))
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

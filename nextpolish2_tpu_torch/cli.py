@@ -3,16 +3,23 @@
     nextpolish2 [-o FILE] [options] HiFi.map.bam genome.fa[.gz] short.read.yak...
 
 All reference flags are supported plus engine knobs (--engine, --device,
---window-len). -t N polishes N contigs at a time through one cross-contig
-device batcher. The engine's DP formulation follows the environment, as in
-the JAX package: NP2_DP_DYNK=1 (dynamic-K kernel on dense tables) or
-NP2_DP_BASE=1 (base formulation); the output is the same.
+--window-len, --mesh, --profile-dir). -t N polishes N contigs at a time
+through one cross-contig device batcher. The engine's DP formulation follows
+the environment, as in the JAX package: NP2_DP_DYNK=1 (dynamic-K kernel on
+dense tables) or NP2_DP_BASE=1 (base formulation); the output is the same.
+
+Several processes split an assembly's contigs when NP2_COORDINATOR
+("host:port" of process 0), NP2_NUM_PROCESSES and NP2_PROCESS_ID are set
+(parallel/distributed.py): each writes -o FILE.shard<h>, and process 0
+merges the shards into FILE once all are done (unless NP2_NO_AUTOMERGE is
+set; the file system must be shared).
 Run as `python -m nextpolish2_tpu_torch.cli ...`.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -72,6 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels' plain PyTorch versions.")
     p.add_argument("--window-len", type=int, default=1024,
                    help="device window target length (columns).")
+    p.add_argument("--mesh", default="auto",
+                   help="device mesh 'WINxKMER' (e.g. 4x2) over the visible "
+                        "cards, 'auto' (all cards on the win axis; tables "
+                        "too large for one card shard over the kmer axis), "
+                        "or 'off' (one card). Used with --device cuda only.")
     p.add_argument("--resume", action="store_true",
                    help="append to an existing -o FILE, skipping contigs "
                         "already present (crash recovery).")
@@ -79,6 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-contig progress to stderr.")
     p.add_argument("--timing", action="store_true",
                    help="per-stage timing summary to stderr.")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (Chrome format) to "
+                        "this directory.")
     p.add_argument("--version", action="version", version=__version__)
     return p
 
@@ -137,10 +152,50 @@ def main(argv=None) -> int:
 
         resolve_device(args.device)  # raise before any output is written
 
+    if args.engine == "cuda" and args.device == "cuda" and args.mesh != "off":
+        from .parallel.mesh import (auto_mesh, axis_size, make_mesh,
+                                    set_active_mesh)
+
+        if args.mesh == "auto":
+            # kmer-axis width from the table footprint: shard tables that
+            # would not fit replicated on one card (parallel/mesh.py)
+            yak_bytes = sum(os.path.getsize(p) for p in args.yak)
+            mesh = auto_mesh(yak_bytes=yak_bytes)
+            if axis_size(mesh, "kmer") > 1:
+                print(f"[np2] mesh auto: {axis_size(mesh, 'win')}x"
+                      f"{axis_size(mesh, 'kmer')} (tables "
+                      f"{yak_bytes/1e9:.1f} GB shard over the kmer axis)",
+                      file=sys.stderr)
+            set_active_mesh(mesh)
+        else:
+            n_win, n_kmer = (int(x) for x in args.mesh.lower().split("x"))
+            set_active_mesh(make_mesh(n_win=n_win, n_kmer=n_kmer))
+
+    from .parallel.distributed import init_distributed, shutdown_distributed
+
+    shard = init_distributed()  # nothing unless NP2_COORDINATOR is set
+    try:
+        return _polish_shard(args, cfg, shard)
+    finally:
+        shutdown_distributed()
+
+
+def _polish_shard(args, cfg, shard) -> int:
+    """Polish this process's contigs into its output (the whole -o FILE, or
+    its shard), merge the shards on process 0, and report."""
+    from .parallel.distributed import finalize_shards
     from .pipeline.orchestrator import PolishStats, completed_contigs, polish
     from .utils.resource import resource_str
 
     out_path = args.out
+    if shard.n_hosts > 1 and args.out != "stdout":
+        out_path = shard.shard_path(args.out)
+        # a stale .done sentinel from a crashed earlier run would let
+        # process 0 merge while this one is still polishing: clear ours
+        try:
+            os.remove(f"{args.out}.shard{shard.host_id}.done")
+        except OSError:
+            pass
     skip = None
     if args.resume and out_path != "stdout":
         from .pipeline.orchestrator import trim_partial_output
@@ -159,13 +214,22 @@ def main(argv=None) -> int:
 
     if args.timing:
         timing.enable()
+    trace = (timing.profiler_trace(args.profile_dir) if args.profile_dir
+             else contextlib.nullcontext())
     try:
-        polish(args.fa, args.bam, args.yak, cfg, engine=args.engine,
-               out=out, stats=stats, skip_contigs=skip, verbose=args.verbose,
-               device=args.device)
+        with trace:
+            polish(args.fa, args.bam, args.yak, cfg, engine=args.engine,
+                   out=out, stats=stats, skip_contigs=skip,
+                   verbose=args.verbose, device=args.device,
+                   host_shard=shard if shard.n_hosts > 1 else None)
     finally:
         if out is not sys.stdout.buffer:
             out.close()
+    if shard.n_hosts > 1 and args.out != "stdout" and \
+            not os.environ.get("NP2_NO_AUTOMERGE"):
+        if finalize_shards(args.out, shard, args.fa, out_pos=cfg.out_pos):
+            print(f"merged {shard.n_hosts} host shards -> {args.out}",
+                  file=sys.stderr)
     if args.timing:
         timing.report()
         from .ops.consensus_cuda import LAUNCHES

@@ -6,13 +6,15 @@
 //   g++ -std=c++17 -O1 -DNP2T_EMULATE -I csrc/emu -o warp_emu csrc/emu/warp_emu.cc
 //   warp_emu DIR KERNEL B W K      KERNEL: v2 | base | dynk
 //   warp_emu DIR lookup MIN_COUNT N_PROBES
+//   warp_emu DIR lookup_sharded MIN_COUNT N_PROBES SHARD
 //   warp_emu DIR score K MIN_COUNT N_PROBES
 //
 // For the DP kernels DIR holds the raw little-endian inputs key, cnt (int32
 // [B,W,K]), cov, ns (int32 [B,W]), lead, span (int32 [B]) and seed (uint8
 // [B]); the outputs go to DIR/scores (int32) and DIR/besti (int8). For the
 // k-mer kernels it holds entries (int32 [S,4], the table's slot entries)
-// and the queries q_hi, q_lo, q_slot (int32 [Q]), or the codes (uint8 [L])
+// and the queries q_hi, q_lo, q_slot (int32 [Q]; for the sharded lookup
+// also q_shard, and the entries are one shard's), or the codes (uint8 [L])
 // and starts (int32 [N]); the output goes to DIR/out (int32 [Q] or [N]).
 // Exit code 3: the lanes of a warp diverged at a warp-wide intrinsic; 5: a
 // kernel wrote past its outputs. It checks the kernels' logic (the lane
@@ -184,20 +186,29 @@ static int run_kmer(const std::string& dir, const std::string& kernel,
   constexpr int kGuard = 64;
   std::vector<int> out;
   int n_out, n_write, rc;
-  if (kernel == "lookup" && argc == 5) {
+  const bool sharded = kernel == "lookup_sharded" && argc == 6;
+  if ((kernel == "lookup" && argc == 5) || sharded) {
     auto q_hi = read_all<int>(dir + "/q_hi");
     auto q_lo = read_all<int>(dir + "/q_lo");
     auto q_slot = read_all<int>(dir + "/q_slot");
+    auto q_shard = sharded ? read_all<int>(dir + "/q_shard") : q_hi;
     n_out = (int)q_hi.size();
-    if (q_lo.size() != q_hi.size() || q_slot.size() != q_hi.size()) {
+    if (q_lo.size() != q_hi.size() || q_slot.size() != q_hi.size() ||
+        q_shard.size() != q_hi.size()) {
       fprintf(stderr, "warp_emu: query planes differ in length\n");
       return 4;
     }
     n_write = n_out;
     out.assign(n_out + kGuard, 0x77777777);
-    rc = np2t_kmer_lookup(tab.data(), q_hi.data(), q_lo.data(),
-                          q_slot.data(), out.data(), n_out, size - 1,
-                          atoi(argv[3]), atoi(argv[4]), nullptr);
+    if (sharded)
+      rc = np2t_kmer_lookup_sharded(tab.data(), q_hi.data(), q_lo.data(),
+                                    q_slot.data(), q_shard.data(), out.data(),
+                                    n_out, size - 1, atoi(argv[3]),
+                                    atoi(argv[4]), atoi(argv[5]), nullptr);
+    else
+      rc = np2t_kmer_lookup(tab.data(), q_hi.data(), q_lo.data(),
+                            q_slot.data(), out.data(), n_out, size - 1,
+                            atoi(argv[3]), atoi(argv[4]), nullptr);
   } else if (kernel == "score" && argc == 6) {
     auto codes = read_all<uint8_t>(dir + "/codes");
     auto starts = read_all<int>(dir + "/starts");
@@ -229,11 +240,13 @@ static int run_kmer(const std::string& dir, const std::string& kernel,
 
 int main(int argc, char** argv) {
   if (argc >= 3 && (std::string(argv[2]) == "lookup" ||
+                    std::string(argv[2]) == "lookup_sharded" ||
                     std::string(argv[2]) == "score"))
     return run_kmer(argv[1], argv[2], argc, argv);
   if (argc != 6) {
     fprintf(stderr, "usage: warp_emu DIR v2|base|dynk B W K | lookup "
-            "MIN_COUNT N_PROBES | score K MIN_COUNT N_PROBES\n");
+            "MIN_COUNT N_PROBES | lookup_sharded MIN_COUNT N_PROBES SHARD | "
+            "score K MIN_COUNT N_PROBES\n");
     return 2;
   }
   const std::string dir = argv[1], kernel = argv[2];

@@ -18,6 +18,16 @@
 // before any is waited on), and a persistent grid of the card's resident
 // blocks strides over the queries, so a long chain holds one thread's
 // slot, not a whole block's tail.
+//
+// The sharded lookup (np2t_kmer_lookup_sharded) replaces the jitted XLA
+// function nextpolish2_tpu/parallel/sharded_kmer.py::make_sharded_lookup,
+// one launch per position of the mesh's 'kmer' axis: the same walk on one
+// shard's entries, where q_shard (int32 [Q], (hash >> 21) % n_shards) names
+// the shard that owns each query. A query of another shard writes 0 without
+// a probe, so a position walks about 1/n_shards of the chains (the JAX body
+// probes every query and masks afterwards); the positions' outputs are
+// disjoint, and their sum is the JAX psum. Stopping at the first empty slot
+// stays exact: each shard was packed by the same rounds (kmer_common.cuh).
 
 #include "kmer_common.cuh"
 
@@ -27,11 +37,16 @@ using namespace np2t_kmer;
 
 constexpr int kChains = 4;  // queries a thread walks at once
 
+// kSharded: only the queries whose q_shard equals `shard` are probed; the
+// others write 0
+template <bool kSharded>
 __global__ void __launch_bounds__(kThreads)
 kmer_lookup_kernel(const int4* __restrict__ tab,
                    const int* __restrict__ q_hi, const int* __restrict__ q_lo,
-                   const int* __restrict__ q_slot, int* __restrict__ out,
-                   int Q, uint32_t mask, int min_count, int n_probes) {
+                   const int* __restrict__ q_slot,
+                   const int* __restrict__ q_shard, int shard,
+                   int* __restrict__ out, int Q, uint32_t mask, int min_count,
+                   int n_probes) {
   // thread t of T takes queries r*T*kChains + g*T + t (g < kChains) in
   // round r: neighbouring threads read and write neighbouring queries
   const long long T = (long long)gridDim.x * blockDim.x;
@@ -44,12 +59,14 @@ kmer_lookup_kernel(const int4* __restrict__ tab,
     for (int g = 0; g < kChains; ++g) {
       const long long i = base + g * T;
       live[g] = i < Q && n_probes > 0;
+      if (kSharded) live[g] = live[g] && q_shard[i] == shard;
       qh[g] = i < Q ? q_hi[i] : 0;
       ql[g] = i < Q ? q_lo[i] : 0;
       idx[g] = (i < Q ? (uint32_t)q_slot[i] : 0u) & mask;
       stride[g] =
           ((((uint32_t)ql[g] >> 10) | ((uint32_t)qh[g] << 22)) | 1u) & mask;
     }
+    // a chain that is not live is not probed, and counts 0
     probe_chains<kChains>(tab, qh, ql, idx, stride, live, count, mask,
                           n_probes);
 #pragma unroll
@@ -60,6 +77,25 @@ kmer_lookup_kernel(const int4* __restrict__ tab,
   }
 }
 
+template <bool kSharded>
+int launch_lookup(const void* entries, const void* q_hi, const void* q_lo,
+                  const void* q_slot, const void* q_shard, int shard,
+                  void* out, int Q, int mask, int min_count, int n_probes,
+                  void* stream) {
+  if (Q < 0 || mask < 0 || n_probes < 0 || shard < 0 ||
+      ((uintptr_t)entries & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  if (Q == 0) return 0;
+  static const int resident = resident_blocks(kmer_lookup_kernel<kSharded>);
+  NP2T_KMER_LAUNCH(kmer_lookup_kernel<kSharded>,
+                   persistent_blocks(Q, (long long)kThreads * kChains,
+                                     resident),
+                   stream, (const int4*)entries, (const int*)q_hi,
+                   (const int*)q_lo, (const int*)q_slot, (const int*)q_shard,
+                   shard, (int*)out, Q, (uint32_t)mask, min_count, n_probes);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // entries: int32 [S, 4], 16-byte aligned; mask = S - 1 (S a power of two)
@@ -67,16 +103,17 @@ extern "C" int np2t_kmer_lookup(const void* entries, const void* q_hi,
                                 const void* q_lo, const void* q_slot,
                                 void* out, int Q, int mask, int min_count,
                                 int n_probes, void* stream) {
-  if (Q < 0 || mask < 0 || n_probes < 0 ||
-      ((uintptr_t)entries & 15) != 0)
-    return (int)cudaErrorInvalidValue;
-  if (Q == 0) return 0;
-  static const int resident = resident_blocks(kmer_lookup_kernel);
-  NP2T_KMER_LAUNCH(kmer_lookup_kernel,
-                   persistent_blocks(Q, (long long)kThreads * kChains,
-                                     resident),
-                   stream, (const int4*)entries, (const int*)q_hi,
-                   (const int*)q_lo, (const int*)q_slot, (int*)out, Q,
-                   (uint32_t)mask, min_count, n_probes);
-  return (int)cudaGetLastError();
+  return launch_lookup<false>(entries, q_hi, q_lo, q_slot, nullptr, 0, out,
+                              Q, mask, min_count, n_probes, stream);
+}
+
+// one shard's entries (int32 [S, 4], as above) and the index of that shard;
+// q_shard: int32 [Q]
+extern "C" int np2t_kmer_lookup_sharded(const void* entries, const void* q_hi,
+                                        const void* q_lo, const void* q_slot,
+                                        const void* q_shard, void* out, int Q,
+                                        int mask, int min_count, int n_probes,
+                                        int shard, void* stream) {
+  return launch_lookup<true>(entries, q_hi, q_lo, q_slot, q_shard, shard,
+                             out, Q, mask, min_count, n_probes, stream);
 }

@@ -46,6 +46,9 @@ KMER_DEVICE_MIN = 1 << 16
 
 _U64 = np.uint64
 _device_tab_lock = threading.Lock()  # one build and upload per table
+# get_sharded calls in this process (tests and chip_smoke.py read it to show
+# that the mesh route was taken)
+SHARDED_LOOKUPS = 0
 
 
 def yak_hash64(key: np.ndarray | int, mask: int) -> np.ndarray | int:
@@ -183,6 +186,10 @@ class KmerTable:
                                       compare=False)
     _device_fits: bool | None = field(default=None, init=False, repr=False,
                                       compare=False)
+    # [mesh, ShardedKmerTable, planes on the 'kmer' positions, {min_count:
+    # lookup fn}] of get_sharded, built for the last mesh it was asked for
+    _sharded: list | None = field(default=None, init=False, repr=False,
+                                  compare=False)
 
     def __post_init__(self):
         if self.composite is None and self.pre + 54 <= 64 and len(self.keys):
@@ -289,16 +296,64 @@ class KmerTable:
         out = kmer_lookup(hi, lo, ct, *q, int(min_count), tab.n_probes)
         return out.cpu().numpy().astype(np.uint16)
 
+    def get_sharded(self, hashes: np.ndarray, min_count: int,
+                    mesh) -> np.ndarray:
+        """Batched lookup in the table sharded over the mesh's 'kmer' axis
+        (parallel/sharded_kmer.py): each position probes its hash-prefix
+        shard for the queries it owns, and their disjoint counts are
+        summed. Built and placed once per mesh, under the module lock; the
+        lookup function is cached per min_count. Queries are padded to a
+        power of two (at least 4096), as in the JAX package."""
+        import torch
+
+        from ..parallel.sharded_kmer import (ShardedKmerTable,
+                                             make_sharded_lookup)
+        from ..utils.torchcfg import bucket_pow2
+
+        global SHARDED_LOOKUPS
+        with _device_tab_lock:
+            SHARDED_LOOKUPS += 1  # shows that production routing took it
+            if self._sharded is None or self._sharded[0] is not mesh:
+                with stage("kmer_table_build"):
+                    tab = ShardedKmerTable.build(
+                        self.full_hashes(), self.counts.astype(np.int64),
+                        self.ksize, n_shards=int(mesh.shape["kmer"]))
+                    self._sharded = [mesh, tab, tab.put(mesh), {}]
+            _, tab, planes, fns = self._sharded
+            fn = fns.get(min_count)
+            if fn is None:
+                fn = fns[min_count] = make_sharded_lookup(
+                    mesh, axis="kmer", min_count=min_count,
+                    n_probes=tab.n_probes)
+        nq = len(hashes)
+        pq = bucket_pow2(nq, 4096)
+        if pq != nq:
+            hashes = np.concatenate(
+                [hashes, np.zeros(pq - nq, dtype=hashes.dtype)])
+        q = [torch.from_numpy(a) for a in tab.query_host_arrays(hashes)]
+        out = fn(*planes, *q)
+        return out.cpu().numpy()[:nq].astype(np.uint16)
+
     def get(self, hashes: np.ndarray, min_count: int = 0) -> np.ndarray:
         """Vectorized lookup: hash V -> stored count, 0 if absent or count < min_count.
 
         Combines the reference's retrieve_kmers min-count filter (kmer.rs:160-161)
         with the get (kmer.rs:123-125): a present k-mer with count < min_count
-        behaves as absent (count 0). A batch that device_route sends to the
-        card (from NP2_KMER_DEVICE_MIN queries, default KMER_DEVICE_MIN) is
-        looked up in the device table instead; both routes are exact.
+        behaves as absent (count 0). Under an active mesh whose 'kmer' axis
+        is wider than 1, a batch of 256 queries or more is looked up in the
+        sharded table (get_sharded), whether or not the whole table fits one
+        device. Otherwise a batch that device_route sends to the card (from
+        NP2_KMER_DEVICE_MIN queries, default KMER_DEVICE_MIN) is looked up in
+        the device table. Every route is exact.
         """
         hashes = np.atleast_1d(np.asarray(hashes, dtype=_U64))
+        if self.pre <= YAK_COUNTER_BITS and len(hashes) >= 256:
+            from ..parallel.mesh import axis_size, get_active_mesh
+
+            mesh = get_active_mesh()
+            if axis_size(mesh, "kmer") > 1:
+                with stage("kmer_get_sharded"):
+                    return self.get_sharded(hashes, min_count, mesh)
         if self.device_route(len(hashes), "NP2_KMER_DEVICE_MIN",
                              KMER_DEVICE_MIN):
             with stage("kmer_get_device"):

@@ -122,18 +122,26 @@ def parse_csr_blob(blob: torch.Tensor, B: int, W: int, K: int, P: int,
 
 
 def assemble_csr(ns, keylo, clo, dgap, dval, eidx, xkey, xcnt,
-                 B: int, W: int, K: int):
+                 B: int, W: int, K: int, win_lo: Optional[int] = None,
+                 Bl: int = 0):
     """Dense key/count tables [B, W, K] int32 and per-column coverage [B, W]
     from the flat CSR stream (the JAX fused1 variant, bit for bit). Entries
     are (window, column, slot)-ordered; deltas ride a gap-encoded sidecar
     (didx = cumsum(dgap) - 1; dval == 0 marks padding); full exceptions
     overwrite last. The fused u32 word keylo | delta<<16 | cnt<<24 is held
-    in int64."""
+    in int64.
+
+    win_lo/Bl: assemble only the window rows [win_lo, win_lo + Bl) into
+    [Bl, W, K] tables (one 'win' position's share of a chunk). Entries,
+    deltas and exceptions of other rows fall outside [0, Bl*W*K) and are
+    dropped, never wrapped."""
     dev = keylo.device
     P = keylo.shape[0]
     Pd = dgap.shape[0]
     Pe = eidx.shape[0]
-    npad = B * W * K
+    if win_lo is None:
+        win_lo, Bl = 0, B
+    npad = Bl * W * K
     e_idx = torch.arange(P, dtype=torch.int64, device=dev)
     packed_e = keylo.to(torch.int64) | (clo.to(torch.int64) << 24)
     didx = torch.cumsum(dgap.to(torch.int64), 0) - 1
@@ -153,7 +161,7 @@ def assemble_csr(ns, keylo, clo, dgap, dval, eidx, xkey, xcnt,
     base.scatter_reduce_(0, start[smask], base_c[smask], reduce="amax",
                          include_self=True)
     base = torch.cummax(base, 0).values
-    gflat = e_idx + base
+    gflat = e_idx + base - win_lo * W * K
     total = cum[-1] if cum.numel() else torch.zeros((), dtype=torch.int64,
                                                      device=dev)
     in_rng = (e_idx < total) & (gflat >= 0) & (gflat < npad)
@@ -172,8 +180,8 @@ def assemble_csr(ns, keylo, clo, dgap, dval, eidx, xkey, xcnt,
         emask = (fe >= 0) & (fe < npad)
         key[fe[emask]] = xkey[emask]
         cnt[fe[emask]] = xcnt[emask]
-    key = key.reshape(B, W, K)
-    cnt = cnt.reshape(B, W, K)
+    key = key.reshape(Bl, W, K)
+    cnt = cnt.reshape(Bl, W, K)
     coverage = torch.where(((key >> 12) & 1) == 0, cnt,
                            torch.zeros_like(cnt)).sum(-1, dtype=torch.int32)
     return key, cnt, coverage
@@ -337,3 +345,153 @@ def dp_backtrack_csr_blob(blob, *, B: int, W: int, K: int, P: int, Pd: int,
         blob, B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, device=device)
     return dp_backtrack(SlotTables(key, cnt, cov, None), lead, seed_u8,
                         last_col, max_steps, dp_variant)
+
+
+# --------------------------------------------------------------------------
+# the mesh's dispatch formats: each 'win' position runs its own rows of the
+# chunk on its device (parallel/mesh.py); the positions' packed rows,
+# concatenated in position order, are the one-device program's output, since
+# every row's words and meta are its own
+
+
+def _gather_rows(parts: list) -> torch.Tensor:
+    """The positions' packed rows, in position order, on the first
+    position's device (the gather waits on every position)."""
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts])
+
+
+def dp_backtrack_csr_blob_sharded(blob, mesh, *, B: int, W: int, K: int,
+                                  P: int, Pd: int, Pe: int, max_steps: int,
+                                  dp_variant: str = "v2") -> torch.Tensor:
+    """The chunk program sharded over the mesh's 'win' axis (the JAX
+    dp_backtrack_csr_blob_sharded): every position parses the whole blob
+    (one tensor a position, on its device, or one tensor or array to copy to
+    each), assembles only its rows [i*Bl, (i+1)*Bl) into [Bl, W, K] tables
+    (assemble_csr win_lo/Bl) and runs the DP and backtrack kernels on its Bl
+    lanes. -> int16 [B, max_steps + 8] on the first position's device, equal
+    to dp_backtrack_csr_blob's output."""
+    from ..parallel.mesh import count_position, per_position, win_rows
+
+    if dp_variant not in ("v2", "base"):
+        raise ValueError(f"dp_variant {dp_variant!r} cannot run on the CSR "
+                         "blob (expected 'v2' or 'base')")
+    parts = []
+    for i, ((lo, hi), b) in enumerate(zip(win_rows(mesh, B),
+                                          per_position(mesh, blob))):
+        (ns, keylo, clo, dgap, dval, eidx, xkey, xcnt, lead, seed,
+         last_col) = parse_csr_blob(b, B, W, K, P, Pd, Pe)
+        key, cnt, cov = assemble_csr(ns, keylo, clo, dgap, dval, eidx, xkey,
+                                     xcnt, B, W, K, win_lo=lo, Bl=hi - lo)
+        parts.append(dp_backtrack(SlotTables(key, cnt, cov, None),
+                                  lead[lo:hi], seed[lo:hi].to(torch.uint8),
+                                  last_col[lo:hi], max_steps, dp_variant))
+        count_position("win", i)
+    return _gather_rows(parts)
+
+
+def _widen16(t: torch.Tensor) -> torch.Tensor:
+    """u16 values (uint16, int16 bit patterns or any wider integer type) ->
+    int32."""
+    if t.dtype == torch.int16:
+        return t.to(torch.int32) & 0xFFFF
+    return t.to(torch.int32)
+
+
+def sparse_tables(dense_key, dense_cnt, coverage, eb, ew, ek, ekey, ecnt,
+                  K: int, lo: int = 0, Bl: Optional[int] = None
+                  ) -> SlotTables:
+    """Slot tables [Bl, W, K] of rows [lo, lo + Bl) from the sparse upload
+    (pipeline.windows.split_sparse): the dense [B, W, KD] tables (counts and
+    coverage as u16) widened to K slots, and the deeper slots scattered in
+    from the exception arrays. Exceptions of other rows, and the padding
+    rows eb == B, are dropped."""
+    B, W, KD = dense_key.shape
+    if Bl is None:
+        Bl = B
+    dev = dense_key.device
+    # one spare row takes every dropped exception, then goes
+    key = torch.full((Bl + 1, W, K), -1, dtype=torch.int32, device=dev)
+    cnt = torch.zeros((Bl + 1, W, K), dtype=torch.int32, device=dev)
+    key[:Bl, :, :KD] = dense_key[lo : lo + Bl].to(torch.int32)
+    cnt[:Bl, :, :KD] = _widen16(dense_cnt[lo : lo + Bl])
+    b = eb.to(torch.int64) - lo
+    b = torch.where((b >= 0) & (b < Bl), b, Bl)
+    idx = (b, ew.to(torch.int64), ek.to(torch.int64))
+    key.index_put_(idx, ekey.to(torch.int32))
+    cnt.index_put_(idx, ecnt.to(torch.int32))
+    return SlotTables(key[:Bl], cnt[:Bl],
+                      _widen16(coverage[lo : lo + Bl]).contiguous(), None)
+
+
+def dp_backtrack_sparse(dense_key, dense_cnt, coverage, eb, ew, ek, ekey,
+                        ecnt, lead, seed, last_col, *, K: int,
+                        max_steps: int, dp_variant: str = "v2",
+                        lo: int = 0, Bl: Optional[int] = None
+                        ) -> torch.Tensor:
+    """DP + backtrack + pack from the sparse upload (sparse_tables), on rows
+    [lo, lo + Bl) (default: all), on the inputs' device -> int16
+    [Bl, max_steps + 8]. dp_variant "v2" or "base": the upload carries no
+    n_slots table."""
+    if dp_variant not in ("v2", "base"):
+        raise ValueError(f"dp_variant {dp_variant!r} cannot run on the "
+                         "sparse upload (expected 'v2' or 'base')")
+    tables = sparse_tables(dense_key, dense_cnt, coverage, eb, ew, ek, ekey,
+                           ecnt, K, lo, Bl)
+    hi = lo + tables.key.shape[0]
+    i32 = torch.int32
+    return dp_backtrack(tables, lead[lo:hi].to(i32).contiguous(),
+                        seed[lo:hi].to(torch.uint8).contiguous(),
+                        last_col[lo:hi].to(i32).contiguous(), max_steps,
+                        dp_variant)
+
+
+def dp_backtrack_sparse_packed(dense_key, dense_cnt, coverage, eb, ew, ek,
+                               ekey, ecnt, lead, seed, last_col, *, K: int,
+                               max_steps: int, dp_variant: str = "v2",
+                               mesh=None) -> torch.Tensor:
+    """The mesh's fallback upload (the JAX dp_backtrack_sparse_packed): with
+    `mesh`, each 'win' position runs dp_backtrack_sparse on its own rows and
+    exceptions, on its device (each argument one tensor a position, or one
+    tensor or array to copy to each); without, one device runs them all.
+    -> int16 [B, max_steps + 8] on the first position's device."""
+    args = (dense_key, dense_cnt, coverage, eb, ew, ek, ekey, ecnt, lead,
+            seed, last_col)
+    kw = dict(K=K, max_steps=max_steps, dp_variant=dp_variant)
+    if mesh is None:
+        return dp_backtrack_sparse(*args, **kw)
+    from ..parallel.mesh import count_position, per_position, win_rows
+
+    placed = list(zip(*(per_position(mesh, a) for a in args)))
+    B = placed[0][0].shape[0]
+    parts = []
+    for i, (lo, hi) in enumerate(win_rows(mesh, B)):
+        parts.append(dp_backtrack_sparse(*placed[i], lo=lo, Bl=hi - lo, **kw))
+        count_position("win", i)
+    return _gather_rows(parts)
+
+
+def dp_backtrack_packed_sharded(tables: SlotTables, lead, seed, last_col,
+                                max_steps: int, dp_variant: str,
+                                mesh) -> torch.Tensor:
+    """The dense-table dispatch split by rows over the mesh's 'win' axis:
+    each position runs dp_backtrack_packed on its rows, on its device (each
+    table and scalar one tensor a position, or one tensor or array to copy
+    to each). -> int16 [B, max_steps + 8] on the first position's device."""
+    from ..parallel.mesh import count_position, per_position, win_rows
+
+    n_slots = tables.n_slots
+    fields = [per_position(mesh, x) for x in
+              (tables.key, tables.count, tables.coverage, lead, seed,
+               last_col)]
+    fields.append(per_position(mesh, n_slots) if n_slots is not None
+                  else [None] * len(fields[0]))
+    B = fields[0][0].shape[0]
+    parts = []
+    for i, (lo, hi) in enumerate(win_rows(mesh, B)):
+        key, cnt, cov, ld, sd, lc, ns = (None if f[i] is None else f[i][lo:hi]
+                                         for f in fields)
+        parts.append(dp_backtrack_packed(SlotTables(key, cnt, cov, ns), ld,
+                                         sd, lc, max_steps, dp_variant))
+        count_position("win", i)
+    return _gather_rows(parts)

@@ -59,7 +59,10 @@ HEADERS = ("dp_common.cuh", "kmer_common.cuh")
 # stream pointer
 _ARGS = {"consensus_dp": (8, 3), "consensus_dp_base": (7, 3),
          "consensus_dp_dynk": (8, 3), "backtrack": (8, 4),
-         "kmer_lookup": (5, 4), "kmer_score": (4, 7)}
+         "kmer_lookup": (5, 4), "kmer_lookup_sharded": (6, 5),
+         "kmer_score": (4, 7)}
+# entry points beyond a library's own np2t_<source name>: their library
+_LIB_OF = {"kmer_lookup_sharded": "kmer_lookup"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 K_MAX = 64  # the kernels' slot bound (uint64 slot masks, two slots a lane)
@@ -179,7 +182,8 @@ def build_kernels(force: bool = False) -> dict:
             os.replace(tmp, _so_path(n))
             BUILD_INFO[n] = {"seconds": time.time() - t0, "log": log}
             _libs.pop(n, None)
-            _fns.pop(n, None)
+            for entry in [e for e in _fns if _LIB_OF.get(e, e) == n]:
+                del _fns[entry]
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         return BUILD_INFO
@@ -193,13 +197,7 @@ def _lib(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_so_path(name))
-            fn = getattr(lib, f"np2t_{name}")
-            fn.restype = ctypes.c_int
-            n_ptr, n_int = _ARGS[name]
-            fn.argtypes = [ctypes.c_void_p] * n_ptr \
-                + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            _libs[name] = lib
+            lib = _libs[name] = ctypes.CDLL(_so_path(name))
     return lib
 
 
@@ -207,7 +205,12 @@ def _fn(name: str):
     """The C entry point np2t_<name>, built and loaded at first use."""
     fn = _fns.get(name)
     if fn is None:
-        fn = _fns[name] = getattr(_lib(name), f"np2t_{name}")
+        fn = getattr(_lib(_LIB_OF.get(name, name)), f"np2t_{name}")
+        fn.restype = ctypes.c_int
+        n_ptr, n_int = _ARGS[name]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr \
+            + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        _fns[name] = fn
     return fn
 
 
@@ -258,7 +261,7 @@ def consensus_dp_v2(key, cnt, cov, lead, seed, span):
     B, W, K, dev = _check_dp("consensus_dp_v2", key, cnt, cov, lead, seed)
     _check(span, "span", torch.int32, (B,), dev)
     scores, besti = _dp_outputs(B, W, K, dev)
-    fn = _lib("consensus_dp").np2t_consensus_dp
+    fn = _fn("consensus_dp")
     with torch.cuda.device(dev):
         _launch("consensus_dp_v2", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), lead.data_ptr(),
@@ -379,7 +382,7 @@ def consensus_dp_base(key, cnt, cov, lead, seed):
         return consensus_dp_base_plain(key, cnt, cov, lead, seed)
     B, W, K, dev = _check_dp("consensus_dp_base", key, cnt, cov, lead, seed)
     scores, besti = _dp_outputs(B, W, K, dev)
-    fn = _lib("consensus_dp_base").np2t_consensus_dp_base
+    fn = _fn("consensus_dp_base")
     with torch.cuda.device(dev):
         _launch("consensus_dp_base", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), lead.data_ptr(),
@@ -399,7 +402,7 @@ def consensus_dp_dynk(key, cnt, cov, n_slots, lead, seed):
     B, W, K, dev = _check_dp("consensus_dp_dynk", key, cnt, cov, lead, seed)
     _check(n_slots, "n_slots", torch.int32, (B, W), dev)
     scores, besti = _dp_outputs(B, W, K, dev)
-    fn = _lib("consensus_dp_dynk").np2t_consensus_dp_dynk
+    fn = _fn("consensus_dp_dynk")
     with torch.cuda.device(dev):
         _launch("consensus_dp_dynk", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), n_slots.data_ptr(),
@@ -557,7 +560,7 @@ def backtrack_packed(key, cnt, cov, scores, besti, last_col, seed,
     _check(last_col, "last_col", torch.int32, (B,), dev)
     _check(seed, "seed", torch.uint8, (B,), dev)
     out = torch.empty((B, max_steps + 8), dtype=torch.int16, device=dev)
-    fn = _lib("backtrack").np2t_backtrack
+    fn = _fn("backtrack")
     with torch.cuda.device(dev):
         _launch("backtrack_packed", (K, B, W), fn, key.data_ptr(),
                 cnt.data_ptr(), cov.data_ptr(), scores.data_ptr(),

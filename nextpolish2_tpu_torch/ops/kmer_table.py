@@ -17,6 +17,14 @@ several chains a thread in flight, stopping at the hit or the first empty
 slot, which is exact: csrc/kmer_common.cuh); for CPU tensors it runs the
 plain twin kmer_lookup_plain. It never falls back, and every launch adds
 one to consensus_cuda.LAUNCHES["kmer_lookup"].
+
+kmer_lookup_sharded is one 'kmer' position's part of the sharded lookup
+that replaces the jitted XLA make_sharded_lookup
+(nextpolish2_tpu/parallel/sharded_kmer.py:84-106; the mesh side is
+parallel/sharded_kmer.py): the same walk on one shard's entries for the
+queries that shard owns, 0 for the others, which are not probed. Its plain
+twin is kmer_lookup_sharded_plain; its launches count under
+"kmer_lookup_sharded".
 """
 
 from __future__ import annotations
@@ -279,21 +287,79 @@ def kmer_lookup_call(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
                      min_count: int, n_probes: int = MAX_PROBES):
     """The checked C call of kmer_lookup on CUDA tensors, not made: (C
     function, its arguments, output tensor)."""
-    dev = key_hi.device
-    if dev.type != "cuda":
-        raise ValueError(f"kmer_lookup: unsupported device {dev}")
-    S = key_hi.shape[0]
-    if S < 1 or S & (S - 1) or S > MAX_SLOTS:
-        raise ValueError(f"kmer_lookup: table size {S} is not a power of two")
-    entries = entries_ptr("kmer_lookup", key_hi, key_lo, counts)
-    Q = q_hi.shape[0]
-    for t, name in ((q_hi, "q_hi"), (q_lo, "q_lo"), (q_slot, "q_slot")):
-        _check(t, name, torch.int32, (Q,), dev)
+    dev, entries, S, Q = _lookup_args(
+        "kmer_lookup", key_hi, key_lo, counts,
+        ((q_hi, "q_hi"), (q_lo, "q_lo"), (q_slot, "q_slot")))
     out = torch.empty(Q, dtype=torch.int32, device=dev)
     return (_fn("kmer_lookup"),
             (entries, q_hi.data_ptr(), q_lo.data_ptr(), q_slot.data_ptr(),
              out.data_ptr(), Q, S - 1, int(min_count), int(n_probes),
              torch.cuda.current_stream(dev).cuda_stream), out)
+
+
+def kmer_lookup_sharded_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
+                              q_shard, shard: int, min_count: int,
+                              n_probes: int = MAX_PROBES):
+    """Plain twin of the kmer_lookup_sharded kernel: kmer_lookup_plain's
+    counts where q_shard == shard, 0 elsewhere."""
+    _count("kmer_lookup_sharded_plain")
+    out, _ = probe_plain(key_hi, key_lo, counts, q_hi, q_lo, q_slot, n_probes)
+    out = torch.where(out >= min_count, out, 0)
+    return torch.where(q_shard == shard, out, 0)
+
+
+def _lookup_args(name: str, key_hi, key_lo, counts, queries):
+    """Checks shared by the lookup wrappers on CUDA tensors: (device,
+    entries address, table size, query count)."""
+    dev = key_hi.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    S = key_hi.shape[0]
+    if S < 1 or S & (S - 1) or S > MAX_SLOTS:
+        raise ValueError(f"{name}: table size {S} is not a power of two")
+    entries = entries_ptr(name, key_hi, key_lo, counts)
+    Q = queries[0][0].shape[0]
+    for t, qname in queries:
+        _check(t, qname, torch.int32, (Q,), dev)
+    return dev, entries, S, Q
+
+
+def kmer_lookup_sharded_call(key_hi, key_lo, counts, q_hi, q_lo, q_slot,
+                             q_shard, shard: int, min_count: int,
+                             n_probes: int = MAX_PROBES):
+    """The checked C call of kmer_lookup_sharded on CUDA tensors, not made:
+    (C function, its arguments, output tensor)."""
+    dev, entries, S, Q = _lookup_args(
+        "kmer_lookup_sharded", key_hi, key_lo, counts,
+        ((q_hi, "q_hi"), (q_lo, "q_lo"), (q_slot, "q_slot"),
+         (q_shard, "q_shard")))
+    if int(shard) < 0:
+        raise ValueError(f"kmer_lookup_sharded: shard {shard} < 0")
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    return (_fn("kmer_lookup_sharded"),
+            (entries, q_hi.data_ptr(), q_lo.data_ptr(), q_slot.data_ptr(),
+             q_shard.data_ptr(), out.data_ptr(), Q, S - 1, int(min_count),
+             int(n_probes), int(shard),
+             torch.cuda.current_stream(dev).cuda_stream), out)
+
+
+def kmer_lookup_sharded(key_hi, key_lo, counts, q_hi, q_lo, q_slot, q_shard,
+                        shard: int, min_count: int,
+                        n_probes: int = MAX_PROBES):
+    """One shard's part of a sharded lookup: [Q] queries -> [Q] counts of
+    the queries whose q_shard (int32 [Q]) is `shard`, 0 for the others (not
+    probed). Table planes as for kmer_lookup, of that shard. CPU tensors:
+    the plain twin; CUDA tensors: the kernel."""
+    if key_hi.device.type == "cpu":
+        return kmer_lookup_sharded_plain(key_hi, key_lo, counts, q_hi, q_lo,
+                                         q_slot, q_shard, shard, min_count,
+                                         n_probes)
+    fn, args, out = kmer_lookup_sharded_call(key_hi, key_lo, counts, q_hi,
+                                             q_lo, q_slot, q_shard, shard,
+                                             min_count, n_probes)
+    launch_on(key_hi.device, "kmer_lookup_sharded",
+              (bucket_pow2(out.shape[0], 1 << 12),), fn, *args)
+    return out
 
 
 def kmer_lookup(key_hi, key_lo, counts, q_hi, q_lo, q_slot, min_count: int,

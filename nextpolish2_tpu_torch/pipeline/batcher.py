@@ -13,7 +13,10 @@ Per-window results flow back through futures.
 
 The worker thread owns the device: it creates the ChunkRunner, submits every
 batch and waits on every completion event (CUDA's current stream is per
-thread). Contig threads never touch the device.
+thread). Contig threads never touch the device. Under an active mesh
+(parallel/mesh.py) a batch whose rows split evenly over the 'win' axis runs
+sharded on a MeshRunner the worker makes; one that does not goes dense on
+one device (reason shape_misalign).
 
 Exactness is free: every DP/backtrack lane is independent of its batch mates
 (ops/consensus.py), so packing order cannot change any window's output;
@@ -32,6 +35,8 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from ..parallel.mesh import axis_size, get_active_mesh
 
 # one dispatched batch is LANE_B windows (the same chunk shapes as the
 # per-contig path, engine.py); a tail flush of <= LANE_SMALL lanes reuses the
@@ -80,6 +85,7 @@ class BatchStats:
         # why a batch was aggregated into dense tables instead (a silent
         # change of format must stay visible):
         #   no_k            tier carries no K (dense-only tier)
+        #   shape_misalign  padded B not divisible by the win-mesh axis
         #   no_csr_closure  a request was submitted without aggregate_csr
         #   csr_bailed      the native CSR pass refused (overflow/fallback)
         self.dense_reasons: Dict[str, int] = {}
@@ -106,6 +112,7 @@ class DeviceBatcher:
         self._device = resolve_device(device)  # raises when CUDA is absent
         self._variants = variants or resolve_dp_variants("v2")
         self._runner = None  # made by the worker thread, which owns it
+        self._mesh_runner = None  # the worker's MeshRunner, for one mesh
         # agg_threads=1: the native aggregator is internally multithreaded
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
@@ -210,9 +217,12 @@ class DeviceBatcher:
             last[row:row + m] = req.last[lo:hi]
             row += m
 
+        n_win = axis_size(self._active_mesh(), "win")
         dense_reason = None
         if K is None:
             dense_reason = "no_k"
+        elif B % n_win != 0:
+            dense_reason = "shape_misalign"
         elif any(req.aggregate_csr is None for req, _, _ in take):
             dense_reason = "no_csr_closure"
         if dense_reason is None:
@@ -384,28 +394,65 @@ class DeviceBatcher:
                     r.future.set_exception(e)
 
     # ---- device dispatch (the engine's dispatch functions) --------------
+    @staticmethod
+    def _active_mesh():
+        """The active mesh (parallel.mesh.set_active_mesh), read at every
+        batch as the engine reads it."""
+        return get_active_mesh()
+
+    def _mesh_sharded(self, n_lanes: Optional[int] = None):
+        """The mesh to shard a batch of n_lanes rows over, under the
+        engine's policy: the active mesh when its 'win' axis is wider than
+        1 and divides the batch; else None (one device)."""
+        mesh = self._active_mesh()
+        n_win = axis_size(mesh, "win")
+        if mesh is not None and n_win > 1 and (
+                n_lanes is None or n_lanes % n_win == 0):
+            return mesh
+        return None
+
+    def _runner_for(self, mesh):
+        """The worker's runner: its ChunkRunner, or with `mesh` a
+        MeshRunner over it (made once for that mesh)."""
+        if mesh is None:
+            return self._runner
+        from .engine import MeshRunner
+
+        if self._mesh_runner is None or self._mesh_runner.mesh is not mesh:
+            self._mesh_runner = MeshRunner(mesh)
+        return self._mesh_runner
+
     def _dispatch(self, tier, batch):
-        """Pack, upload and start one batch on the worker's ChunkRunner;
-        returns its handle at once (the device works while the worker
-        aggregates the next batch). _device_get collects it."""
+        """Pack, upload and start one batch on the worker's runner, sharded
+        over the active mesh's 'win' axis where it has one; returns its
+        handle at once (the device works while the worker aggregates the
+        next batch). _device_get collects it."""
         from .engine import dispatch_chunk, dispatch_chunk_csr
 
         kind, payload, overflow, lead, seed, last, _row = batch
         width = tier[0]
         if kind == "csr":
-            return dispatch_chunk_csr(self._runner, payload, lead, seed, last,
-                                      width, tier[1], self._variants)
+            # a CSR batch is aligned to the mesh (else shape_misalign made
+            # it dense)
+            mesh = self._mesh_sharded()
+            return dispatch_chunk_csr(self._runner_for(mesh), payload, lead,
+                                      seed, last, width, tier[1],
+                                      self._variants, mesh=mesh)
         key_tab, cnt_tab, coverage, n_slots = payload
+        mesh = self._mesh_sharded(len(overflow))
         return dispatch_chunk(
-            self._runner, (key_tab, cnt_tab, coverage, n_slots, overflow),
-            lead, seed, last, width, key_tab.shape[2], self._variants)
+            self._runner_for(mesh),
+            (key_tab, cnt_tab, coverage, n_slots, overflow), lead, seed, last,
+            width, key_tab.shape[2], self._variants,
+            sharded=mesh is not None)
 
     def _device_get(self, dev, last_col) -> tuple:
         from ..ops.consensus import decode_backtrack_words
         from ..utils.timing import stage
+        from .engine import ChunkRunner
 
         with stage("device_dp_backtrack"):
-            return decode_backtrack_words(self._runner.result(dev), last_col)
+            return decode_backtrack_words(ChunkRunner.result(dev), last_col)
 
 
 # ---- active batcher: engine.device_consensus_stream routes through it -----

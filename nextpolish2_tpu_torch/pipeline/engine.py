@@ -18,6 +18,13 @@ the n_slots table; otherwise chunks ride the CSR blob. With an active
 cross-contig batcher (pipeline/batcher.py, -t N) the windows go to it as
 aggregation closures instead of being dispatched here.
 
+Under an active mesh (parallel/mesh.py) whose 'win' axis divides the chunk
+batch, chunks run sharded on a MeshRunner: each 'win' position assembles,
+scores and walks its own rows on its device, from the same blob (or dense
+tables split by rows under dynamic-K, or the sparse format when a batcher
+has only dense tables: dispatch_chunk), and the rows are gathered in
+position order.
+
 Exactness: anchor-forced windowing makes the windowed DP equal to the
 reference's whole-contig DP (pipeline/windows.py); windows that overflow the
 device's static bounds (slots, path steps) re-run on the host, and a
@@ -55,17 +62,21 @@ from ..models.oracle_lq import (
 )
 from ..models.oracle_msa import Consensus, lq_from_qv_stream
 from ..ops.consensus import (DP_VARIANTS, SlotTables, decode_backtrack_words,
-                             dp_backtrack_csr_blob, dp_backtrack_packed,
-                             nibble_ns_for)
+                             dp_backtrack_csr_blob,
+                             dp_backtrack_csr_blob_sharded,
+                             dp_backtrack_packed, dp_backtrack_packed_sharded,
+                             dp_backtrack_sparse_packed, nibble_ns_for)
+from ..parallel.mesh import axis_devices, axis_size, get_active_mesh
 from ..utils.seqcodes import ASCII2CODE, CODE2ASCII
 from ..utils.timing import stage
 from ..utils.torchcfg import bucket, resolve_device
 from .host_fallback import host_window_dp
 from .windows import (WindowOverflow, aggregate_csr_host, aggregate_csr_parts,
                       aggregate_host, build_window_batch, pack_csr_blob,
-                      split_csr)
+                      split_csr, split_sparse)
 
 K_SMALL = 8   # small DP-kernel slot tier
+K_DENSE = 4   # dense width of the sparse upload; deeper slots are exceptions
 CHUNK_B_TIERS = {K_SMALL: 512, 48: 128}
 PIPELINE_DEPTH = 3  # chunks in flight: host aggregation overlaps the device
 
@@ -270,6 +281,18 @@ class ChunkRunner:
             outs.append(t.reshape(a.shape))
         return outs
 
+    def put(self, arrays: Sequence[np.ndarray]) -> list:
+        """Host arrays -> tensors on this runner's device (_upload's order
+        and dtypes; on the CPU the arrays themselves)."""
+        if self.cuda:
+            return self._upload(arrays)
+        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+    def finish(self, out: torch.Tensor):
+        """The handle of a started program's packed output: on CUDA its
+        download into pinned memory with a completion event."""
+        return self._download(out) if self.cuda else out
+
     def _download(self, out: torch.Tensor):
         res = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         res.copy_(out, non_blocking=True)
@@ -280,12 +303,10 @@ class ChunkRunner:
     def submit(self, blob: np.ndarray, *, B: int, W: int, K: int, P: int,
                Pd: int, Pe: int, max_steps: int, dp_variant: str = "v2"):
         """Start the CSR-blob chunk program; returns a handle for result."""
-        kw = dict(B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, max_steps=max_steps,
-                  dp_variant=dp_variant)
-        if not self.cuda:
-            return dp_backtrack_csr_blob(torch.from_numpy(blob), **kw)
-        (dev_blob,) = self._upload([blob])
-        return self._download(dp_backtrack_csr_blob(dev_blob, **kw))
+        (dev_blob,) = self.put([blob])
+        return self.finish(dp_backtrack_csr_blob(
+            dev_blob, B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, max_steps=max_steps,
+            dp_variant=dp_variant))
 
     def submit_dense(self, key_tab: np.ndarray, cnt_tab: np.ndarray,
                      coverage: np.ndarray, n_slots: np.ndarray,
@@ -293,18 +314,12 @@ class ChunkRunner:
                      *, max_steps: int, dp_variant: str):
         """Start the dense-table chunk program (int32 [B, W, K] tables
         shipped whole); returns a handle for result."""
-        arrays = [np.asarray(a, dtype=np.int32)
-                  for a in (key_tab, cnt_tab, coverage, n_slots, lead,
-                            last_col)]
-        arrays.append(np.asarray(seed, dtype=np.uint8))
-        if self.cuda:
-            tensors = self._upload(arrays)
-        else:
-            tensors = [torch.from_numpy(a) for a in arrays]
-        key, cnt, cov, ns, lead_t, last_t, seed_t = tensors
+        key, cnt, cov, ns, lead_t, last_t, seed_t = self.put(
+            _dense_arrays(key_tab, cnt_tab, coverage, n_slots, lead, seed,
+                          last_col))
         out = dp_backtrack_packed(SlotTables(key, cnt, cov, ns), lead_t,
                                   seed_t, last_t, max_steps, dp_variant)
-        return self._download(out) if self.cuda else out
+        return self.finish(out)
 
     @staticmethod
     def result(handle) -> np.ndarray:
@@ -316,29 +331,119 @@ class ChunkRunner:
         return res.numpy()
 
 
-def dispatch_chunk(runner: ChunkRunner, agg: tuple, lead: np.ndarray,
-                   seed: np.ndarray, last_col: np.ndarray, cwidth: int,
-                   ck: int, variants: DpVariants):
+def _dense_arrays(key_tab, cnt_tab, coverage, n_slots, lead, seed, last_col):
+    """The dense-table upload: int32 tables and scalars, then seed as u8."""
+    return [np.asarray(a, dtype=np.int32)
+            for a in (key_tab, cnt_tab, coverage, n_slots, lead, last_col)] \
+        + [np.asarray(seed, dtype=np.uint8)]
+
+
+class MeshRunner:
+    """Runs chunk programs sharded over a mesh's 'win' axis
+    (parallel/mesh.py): one ChunkRunner a position, on that position's
+    device. A chunk's upload is copied to every position (each parses it or
+    slices its own rows there), every position starts its rows' program,
+    and the positions' packed rows are gathered, in position order, on the
+    first position's device, from where one download brings them back. A
+    device may serve several positions; their work then runs in turn on it.
+    Like a ChunkRunner, the thread that submits must also collect."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.runners = [ChunkRunner(d) for d in axis_devices(mesh, "win")]
+
+    def _put(self, arrays: Sequence[np.ndarray]) -> list:
+        """arrays on every position: per array, one tensor a position."""
+        return [list(col) for col in zip(*(r.put(arrays)
+                                           for r in self.runners))]
+
+    def submit(self, blob: np.ndarray, *, B: int, W: int, K: int, P: int,
+               Pd: int, Pe: int, max_steps: int, dp_variant: str = "v2"):
+        """Start the CSR-blob chunk program sharded over 'win'
+        (ops.consensus.dp_backtrack_csr_blob_sharded)."""
+        (blobs,) = self._put([blob])
+        return self.runners[0].finish(dp_backtrack_csr_blob_sharded(
+            blobs, self.mesh, B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe,
+            max_steps=max_steps, dp_variant=dp_variant))
+
+    def submit_sparse(self, dense_key, dense_cnt, coverage, eb, ew, ek, ekey,
+                      ecnt, lead, seed, last_col, *, K: int, max_steps: int,
+                      dp_variant: str):
+        """Start the sparse-upload program (pipeline.windows.split_sparse
+        arrays), each position on its rows and their exceptions
+        (ops.consensus.dp_backtrack_sparse_packed). Counts and coverage,
+        u16 values, travel as int32, as the upload takes them."""
+        arrays = [np.asarray(a, dtype=np.int32) for a in
+                  (dense_key, dense_cnt, coverage, eb, ew, ek, ekey, ecnt,
+                   lead, last_col)] + [np.asarray(seed, dtype=np.uint8)]
+        (dk, dc, cov, eb_t, ew_t, ek_t, ekey_t, ecnt_t, lead_t, last_t,
+         seed_t) = self._put(arrays)
+        return self.runners[0].finish(dp_backtrack_sparse_packed(
+            dk, dc, cov, eb_t, ew_t, ek_t, ekey_t, ecnt_t, lead_t, seed_t,
+            last_t, K=K, max_steps=max_steps, dp_variant=dp_variant,
+            mesh=self.mesh))
+
+    def submit_dense(self, key_tab, cnt_tab, coverage, n_slots, lead, seed,
+                     last_col, *, max_steps: int, dp_variant: str):
+        """Start the dense-table program split by rows over 'win'
+        (ops.consensus.dp_backtrack_packed_sharded)."""
+        key, cnt, cov, ns, lead_t, last_t, seed_t = self._put(
+            _dense_arrays(key_tab, cnt_tab, coverage, n_slots, lead, seed,
+                          last_col))
+        return self.runners[0].finish(dp_backtrack_packed_sharded(
+            SlotTables(key, cnt, cov, ns), lead_t, seed_t, last_t, max_steps,
+            dp_variant, self.mesh))
+
+    result = staticmethod(ChunkRunner.result)
+
+
+def _check_runner(runner, sharded: bool) -> None:
+    if sharded != isinstance(runner, MeshRunner):
+        raise ValueError("a sharded dispatch needs a MeshRunner, and only "
+                         "a sharded one takes it")
+
+
+def dispatch_chunk(runner, agg: tuple, lead: np.ndarray, seed: np.ndarray,
+                   last_col: np.ndarray, cwidth: int, ck: int,
+                   variants: DpVariants, sharded: bool = False):
     """One device dispatch for a chunk aggregated into dense tables, agg =
     (key_tab, cnt_tab, coverage, n_slots, overflow): the engine's dynamic-K
     route and the batcher's dense fallback go through here. Under dynamic-K
-    the tables ship whole (the kernel reads n_slots); otherwise they are
-    split into the CSR stream on the host and ride the blob, as every other
-    chunk does. Returns the runner's handle."""
+    the tables ship whole (the kernel reads n_slots), split by rows over the
+    mesh when sharded; otherwise a sharded chunk (runner: a MeshRunner)
+    takes the sparse format (dense K_DENSE tables plus exceptions,
+    windows.split_sparse), and an unsharded one is split into the CSR
+    stream on the host and rides the blob, as every other chunk does.
+    Returns the runner's handle."""
+    _check_runner(runner, sharded)
     key_tab, cnt_tab, coverage, n_slots, _overflow = agg
+    max_steps = int(cwidth + 128)
     if variants.dynk:
         return runner.submit_dense(key_tab, cnt_tab, coverage, n_slots, lead,
-                                   seed, last_col, max_steps=int(cwidth + 128),
+                                   seed, last_col, max_steps=max_steps,
                                    dp_variant="dynk")
+    if sharded:
+        dense_key, dense_cnt, eb, ew, ek, ekey, ecnt = split_sparse(
+            key_tab, cnt_tab, n_slots, K_DENSE)
+        # counts and coverage as u16, as JAX ships them (a window whose
+        # coverage exceeds it is flagged for the host fallback)
+        return runner.submit_sparse(dense_key, dense_cnt.astype(np.uint16),
+                                    coverage.astype(np.uint16), eb, ew, ek,
+                                    ekey, ecnt, lead, seed, last_col,
+                                    K=ck, max_steps=max_steps,
+                                    dp_variant=variants.blob)
     return dispatch_chunk_csr(runner, split_csr(key_tab, cnt_tab, n_slots),
                               lead, seed, last_col, cwidth, ck, variants)
 
 
-def dispatch_chunk_csr(runner: ChunkRunner, csr: tuple, lead: np.ndarray,
+def dispatch_chunk_csr(runner, csr: tuple, lead: np.ndarray,
                        seed: np.ndarray, last_col: np.ndarray, cwidth: int,
-                       ck: int, variants: DpVariants):
+                       ck: int, variants: DpVariants, mesh=None):
     """One device dispatch from an already-CSR chunk (ns_u8, keylo, clo,
-    dgap, dval, eidx, xkey, xcnt). Returns the runner's handle."""
+    dgap, dval, eidx, xkey, xcnt). With `mesh` (runner: a MeshRunner over
+    it) the same blob runs sharded over the mesh's 'win' axis. Returns the
+    runner's handle."""
+    _check_runner(runner, mesh is not None)
     blob, P, Pd, Pe = csr_blob(csr, lead, seed, last_col, ck)
     B, W = csr[0].shape
     return runner.submit(blob, B=B, W=W, K=ck, P=P, Pd=Pd, Pe=Pe,
@@ -397,6 +502,13 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
 
     def tier_for(span: int) -> int:
         return tiers[0] if span <= tiers[0] else tiers[1]
+
+    # sharding: each chunk's rows split over the active mesh's 'win' axis
+    # (the DP and the backtrack are per window, so positions exchange
+    # nothing until the gather)
+    mesh = get_active_mesh()
+    n_win = axis_size(mesh, "win")
+    sharded = mesh is not None and n_win > 1 and CHUNK_B % n_win == 0
 
     anchors = window_anchors(wb)
     lead_all, seed_all, last_all = anchors
@@ -481,6 +593,8 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
         chunks = plan_tiered_chunks(span_all, ktier_all, tiers, CHUNK_B,
                                     tier_b=chunk_b_tiers(K) if CHUNK_B >= 128
                                     else None)
+        if sharded:
+            runner = MeshRunner(mesh)
         # software pipeline: aggregate + submit chunks ahead BEFORE pulling,
         # so host pileup prep overlaps the device's DP of earlier chunks
         pending = collections.deque()
@@ -495,7 +609,8 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
                 overflow = agg[4]
                 with stage("device_submit"):
                     handle = dispatch_chunk(runner, agg, lead, seed, last_col,
-                                            cwidth, ck, variants)
+                                            cwidth, ck, variants,
+                                            sharded=sharded)
             else:
                 blob, P, Pd, Pe, overflow, last_col = chunk_blob(
                     wb, ids, cwidth, ck, pad_b, anchors)

@@ -224,7 +224,8 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
            out=None, stats: Optional[PolishStats] = None,
            skip_contigs: Optional[set] = None,
            verbose: bool = False, device=None,
-           dp_variant: Optional[str] = None) -> List[PolishedContig]:
+           dp_variant: Optional[str] = None,
+           host_shard=None) -> List[PolishedContig]:
     """Polish all contigs of `fa_path` using `bam_path` alignments and yak tables.
 
     engine: 'cuda' (device windowed engine) or 'oracle' (reference-faithful
@@ -237,6 +238,8 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
     If `out` is a binary file object, FASTA records are written as completed and
     sequences are not retained (returns empty list).
     skip_contigs: names to skip (resume support; see completed_contigs).
+    host_shard: a parallel.distributed.HostShard; only the contigs it owns,
+    by their index among all FASTA records, are polished here.
     """
     cfg = cfg or PolishConfig()
     if engine not in ("cuda", "oracle"):
@@ -306,7 +309,9 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
         return cb, passthrough, time.time() - t_contig
 
     todo = []
-    for name, seq in read_fastx(fa_path):
+    for contig_index, (name, seq) in enumerate(read_fastx(fa_path)):
+        if host_shard is not None and not host_shard.owns(contig_index):
+            continue  # another process polishes this contig
         if skip_contigs and name in skip_contigs:
             continue
         todo.append((name, seq))

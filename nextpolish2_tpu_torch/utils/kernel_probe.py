@@ -1,4 +1,4 @@
-"""A short probe of the six kernels for the first run on a card after a
+"""A short probe of the seven kernels for the first run on a card after a
 change to any file under csrc/: seconds, where the whole smoke run takes
 minutes.
 
@@ -12,11 +12,12 @@ on synthetic chunks of the production shapes: a 4-window table from
 dp_cases.make_case (sparse: about 1.3 live slots a column, as real chunks;
 dense: 2 at K=8, 12 at K=48) repeated to B windows, with the first and last 4
 windows compared with the twins. One JSON line per
-shape (median of 20 launches, CUDA events). The two k-mer kernels are held
+shape (median of 20 launches, CUDA events). The three k-mer kernels are held
 to their twins on the bundled k21 and k31 tables, packed on the card
 (present, absent, below-min_count and high-bit queries; alleles with Ns,
-empty ones, ones shorter than k, padding), and timed at 2^20 queries and
-bases. Exit code 1 on any difference. The times are for comparing two builds
+empty ones, ones shorter than k, padding; the sharded lookup on each table
+split into 2 shards, whose sum must also equal the unsharded lookup), and
+timed at 2^20 queries and bases. Exit code 1 on any difference. The times are for comparing two builds
 of a kernel with each other; the figures of record come from chip_smoke.py,
 on real chunks.
 """
@@ -66,6 +67,8 @@ def check_kmer_kernels(dev) -> int:
     from ..io.yak import load_yak
     from ..ops import kmer_score as ks
     from ..ops import kmer_table as kt
+    from ..parallel.mesh import make_mesh
+    from ..parallel.sharded_kmer import ShardedKmerTable
 
     data = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), "testdata")
@@ -108,12 +111,34 @@ def check_kmer_kernels(dev) -> int:
                                               n_probes)
                 torch.cuda.synchronize()
                 equal &= torch.equal(got, want) and torch.equal(sg, sw)
+        # the sharded lookup: every shard of 2 against its twin, and the
+        # shards' sum against the unsharded lookup
+        sharded = ShardedKmerTable.build(h, table.counts.astype(np.int64),
+                                         table.ksize, 2)
+        shi, slo, sct = sharded.put(make_mesh(1, 2, devices=[dev, dev]))
+        sq = [torch.from_numpy(a).to(dev)
+              for a in sharded.query_host_arrays(q)]
+        for min_count in (0, 5):
+            total = kt.kmer_lookup(hi, lo, ct, *qd, min_count, tab.n_probes)
+            for s in range(2):
+                got = kt.kmer_lookup_sharded(shi[s], slo[s], sct[s], *sq, s,
+                                             min_count, sharded.n_probes)
+                want = kt.kmer_lookup_sharded_plain(
+                    shi[s], slo[s], sct[s], *sq, s, min_count,
+                    sharded.n_probes)
+                torch.cuda.synchronize()
+                equal &= torch.equal(got, want)
+                total = total - got
+            equal &= not bool(total.any())
         bad += not equal
         print(json.dumps({
             "kmer_table": name, "keys": len(h), "slots": tab.size,
             "n_probes": tab.n_probes, "equal_to_twins": equal,
             "lookup_ms_at_2^20": _median_ms(lambda: kt.kmer_lookup(
                 hi, lo, ct, *qd, 5, tab.n_probes)),
+            "sharded_lookup_ms_at_2^20_shard_0_of_2": _median_ms(
+                lambda: kt.kmer_lookup_sharded(shi[0], slo[0], sct[0], *sq, 0,
+                                               5, sharded.n_probes)),
             "score_ms_at_2^20": _median_ms(lambda: ks.kmer_min_scores(
                 hi, lo, ct, codes, starts, table.ksize, 5, tab.n_probes)),
             "device": torch.cuda.get_device_name(0)}), flush=True)

@@ -51,3 +51,24 @@ def report(out=sys.stderr) -> None:
     for name in sorted(_totals, key=lambda k: -_totals[k]):
         print(f"  {name:<28} {_totals[name]:8.2f}s  x{_counts[name]}", file=out)
 
+
+
+@contextmanager
+def profiler_trace(log_dir: str):
+    """torch.profiler trace of the block (CPU activity, and CUDA activity
+    where a card is present), written on exit as a Chrome trace
+    `np2_trace.<pid>.json` in log_dir (created if missing). A profiler
+    that cannot start raises: the caller asked for a trace."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"np2_trace.{os.getpid()}.json"))

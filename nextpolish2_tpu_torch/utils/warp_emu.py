@@ -1,4 +1,4 @@
-"""CPU rehearsal of the three DP kernels and the two k-mer kernels:
+"""CPU rehearsal of the three DP kernels and the k-mer kernels:
 csrc/emu/warp_emu.cc compiles the CUDA sources themselves with the host C++
 compiler against a stand-in cuda_runtime.h and runs them, through their C
 entry points, one warp at a time with the 32 lanes in lockstep. It proves
@@ -12,8 +12,9 @@ for the card: chip_smoke.py and utils/kernel_probe.py.
 
 builds the emulator (g++, a few seconds) and holds consensus_dp_v2,
 consensus_dp_base and consensus_dp_dynk (exact and mangled n_slots) to their
-plain twins on the named edge-case tables of dp_cases, and kmer_lookup and
-kmer_min_scores to theirs on the k-mer cases of KMER_CASES (default: all).
+plain twins on the named edge-case tables of dp_cases, and kmer_lookup,
+kmer_lookup_sharded and kmer_min_scores to theirs on the k-mer cases of
+KMER_CASES (default: all).
 Exit code 1 on any difference. At some 5 microseconds a warp-wide intrinsic
 it is for small tables only.
 """
@@ -32,10 +33,12 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                      "csrc")
 KERNELS = ("v2", "base", "dynk")
 # the k-mer cases: a table at load 0.78 (chains of the longest length) with
-# the lookup's queries, and allele batches for the scorer on a k21 and a k31
-# table, one unpadded, one past 2^19 bases (check_kmer_case)
+# the lookup's queries, allele batches for the scorer on a k21 and a k31
+# table, one unpadded, one past 2^19 bases, and the sharded lookup on the
+# first case's keys split into 2 and into 4 shards (check_kmer_case)
 KMER_CASES = ("lookup_long_chains", "score_k21", "score_k31",
-              "score_k21_unpadded", "score_k21_long_runs")
+              "score_k21_unpadded", "score_k21_long_runs", "lookup_sharded")
+SHARD_COUNTS = (2, 4)   # the shard counts of the lookup_sharded case
 
 
 def compiler():
@@ -139,6 +142,20 @@ def run_lookup(exe: str, entries, q_hi, q_lo, q_slot, min_count: int,
                       "q_slot": np.asarray(q_slot, np.int32)}, sms)
 
 
+def run_lookup_sharded(exe: str, entries, q_hi, q_lo, q_slot, q_shard,
+                       shard: int, min_count: int, n_probes: int,
+                       sms: int = 1) -> np.ndarray:
+    """kmer_lookup_sharded's kernel through the emulator: one shard's
+    entries int32 [S, 4], queries and their shards int32 [Q] x 4 ->
+    int32 [Q]."""
+    return _run_kmer(exe, ("lookup_sharded", min_count, n_probes, shard),
+                     {"entries": np.asarray(entries, np.int32),
+                      "q_hi": np.asarray(q_hi, np.int32),
+                      "q_lo": np.asarray(q_lo, np.int32),
+                      "q_slot": np.asarray(q_slot, np.int32),
+                      "q_shard": np.asarray(q_shard, np.int32)}, sms)
+
+
 def run_score(exe: str, entries, codes, starts, ksize: int, min_count: int,
               n_probes: int, sms: int = 1) -> np.ndarray:
     """kmer_min_scores's kernel through the emulator on a card of `sms`
@@ -195,6 +212,17 @@ def kmer_case_inputs(name: str):
     from ..ops.kmer_table import DeviceKmerTable
     from .seqcodes import seq_to_codes
 
+    if name == "lookup_sharded":
+        # the first case's keys and queries, the keys split into shards
+        # (packed at the default load 0.5, the sharded build's); each warp
+        # holds queries of every shard
+        from ..parallel.sharded_kmer import ShardedKmerTable
+
+        tab, q = kmer_case_inputs("lookup_long_chains")
+        hashes, counts = _table_keys(tab)
+        qh = _join64(q[0].numpy(), q[1].numpy())
+        return [(ShardedKmerTable.build(hashes, counts, 21, n), qh)
+                for n in SHARD_COUNTS], None
     rng = np.random.default_rng(KMER_CASES.index(name) + 300)
     if name == "lookup_long_chains":
         from ..io.yak import yak_hash64
@@ -253,6 +281,9 @@ def check_kmer_case(exe: str, name: str, sms: int = 1) -> None:
     from ..ops import kmer_score as ks
     from ..ops import kmer_table as kt
 
+    if name == "lookup_sharded":
+        _check_sharded(exe, sms)
+        return
     tab, inputs = kmer_case_inputs(name)
     planes = tuple(torch.from_numpy(np.ascontiguousarray(p))
                    for p in (tab.key_hi, tab.key_lo, tab.counts))
@@ -278,6 +309,63 @@ def check_kmer_case(exe: str, name: str, sms: int = 1) -> None:
                     f"min_count {min_count}, n_probes {n_probes}, "
                     f"{len(bad)} entries, first {bad[:5].tolist()}: "
                     f"{got[bad[:5]].tolist()} != {want[bad[:5]].tolist()}")
+
+
+def _check_sharded(exe: str, sms: int) -> None:
+    """kmer_lookup_sharded in the emulator against its twin on every shard
+    of the lookup_sharded case, at 2 and 4 shards, min_count 0 and 7,
+    under the table's probe bound and MAX_PROBES; and the shards' sum
+    against the unsharded twin on the whole table."""
+    import torch
+
+    from ..ops import kmer_table as kt
+
+    tables, _ = kmer_case_inputs("lookup_sharded")
+    for tab, qh in tables:
+        q = [torch.from_numpy(a) for a in tab.query_host_arrays(qh)]
+        whole = kt.DeviceKmerTable.build(*_table_keys(tab), tab.ksize)
+        wq = [torch.from_numpy(a) for a in whole.query_host_arrays(qh)]
+        wplanes = [torch.from_numpy(np.ascontiguousarray(p))
+                   for p in (whole.key_hi, whole.key_lo, whole.counts)]
+        for min_count in (0, 7):
+            for n_probes in (tab.n_probes, kt.MAX_PROBES):
+                total = np.zeros(len(qh), np.int64)
+                for s in range(tab.n_shards):
+                    planes = [torch.from_numpy(np.ascontiguousarray(p[s]))
+                              for p in (tab.key_hi, tab.key_lo, tab.counts)]
+                    got = run_lookup_sharded(
+                        exe, tab.entries[s], *(a.numpy() for a in q), s,
+                        min_count, n_probes, sms)
+                    want = kt.kmer_lookup_sharded_plain(
+                        *planes, *q, s, min_count, n_probes).numpy()
+                    if not np.array_equal(got, want):
+                        bad = np.nonzero(got != want)[0]
+                        raise AssertionError(
+                            f"lookup_sharded: emulated shard {s} of "
+                            f"{tab.n_shards} differs from the twin at "
+                            f"min_count {min_count}, n_probes {n_probes}, "
+                            f"{len(bad)} entries, first {bad[:5].tolist()}")
+                    total += got
+                want = kt.kmer_lookup_plain(*wplanes, *wq, min_count).numpy()
+                if not np.array_equal(total, want):
+                    raise AssertionError(
+                        f"lookup_sharded: the sum over {tab.n_shards} shards "
+                        f"differs from the unsharded lookup")
+
+
+def _join64(hi, lo) -> np.ndarray:
+    """int32 hi/lo planes -> the u64 hashes."""
+    return ((hi.astype(np.int64).astype(np.uint64) << np.uint64(32))
+            | (lo.astype(np.int64).astype(np.uint64)
+               & np.uint64(0xFFFFFFFF)))
+
+
+def _table_keys(tab):
+    """(hashes, counts) of the keys a table's slot entries hold (one table
+    or a stack of shards)."""
+    e = tab.entries.reshape(-1, 4)
+    live = ~((e[:, 0] == -1) & (e[:, 1] == -2))
+    return _join64(e[live, 0], e[live, 1]), e[live, 2].astype(np.int64)
 
 
 def main(argv) -> int:

@@ -94,3 +94,49 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert get_active_batcher() is None
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceBatcher("cuda")
+
+
+def test_mesh_modules_load_no_jax_and_raise_without_cuda(monkeypatch,
+                                                          tmp_path):
+    """The mesh path's modules import no JAX; its entry points go to the
+    card unless given CPU devices, and raise where there is none."""
+    mods = ("parallel.mesh", "parallel.sharded_kmer", "parallel.distributed",
+            "bridge", "utils.timing", "cli")
+    for m in mods:
+        assert os.path.exists(os.path.join(PORT, *m.split(".")) + ".py")
+    code = ("import sys\n"
+            + "".join(f"import nextpolish2_tpu_torch.{m}\n" for m in mods)
+            + "assert not [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'nextpolish2_tpu')]\nprint('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+    import numpy as np
+
+    from nextpolish2_tpu_torch import cli
+    from nextpolish2_tpu_torch.io.yak import load_yak
+    from nextpolish2_tpu_torch.parallel import mesh as tm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.make_mesh(1, 1)
+    assert tm.auto_mesh(yak_bytes=1 << 40) is None
+    base = os.path.join(REPO, "testdata")
+    out = tmp_path / "o.fa"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([f"{base}/slice.bam", f"{base}/slice.fa",
+                  f"{base}/k21.yak", "--mesh", "1x2", "-o", str(out)])
+    assert tm.get_active_mesh() is None and not out.exists()
+    # a mesh of CUDA devices raises at its first placement
+    table = load_yak(f"{base}/k21.yak")
+    tm.set_active_mesh(tm.make_mesh(1, 2, devices=["cuda:0", "cuda:0"]))
+    try:
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            table.get(table.full_hashes()[:300])
+    finally:
+        tm.set_active_mesh(None)
+    assert np.array_equal(table.get(table.full_hashes()[:300]),
+                          table.counts[:300])

@@ -15,7 +15,11 @@ warp_emu.KMER_CASES:
     internal N, alleles that own no position, and starts padded with L;
     once as score_inputs pads the batch, once unpadded, of a length that is
     no multiple of 16, and once past 2^19 bases, where the kernel takes its
-    longer runs.
+    longer runs;
+  - kmer_lookup_sharded on the first case's keys split into 2 and into 4
+    shards: every shard's launch against its twin (queries of every shard
+    in each warp, those of other shards unprobed), and the shards' sum
+    against the unsharded lookup.
 
 Each runs on an emulated card of 3 SMs and, but for the longest, of 1 SM,
 so the persistent grid strides over its work. The twins are held to the JAX package in
@@ -63,7 +67,16 @@ def test_kmer_cases_reach_their_edges():
     assert tab.n_probes >= 16 and int(probes.max()) == tab.n_probes
     assert ((q[0] == -1) & (q[1] == -2)).sum() == 1      # the sentinel
     assert ((q[0] < 0) & (q[1] < 0) & (q[0] != -1)).sum() > 100
-    for name in warp_emu.KMER_CASES[1:]:
+    tables, _ = warp_emu.kmer_case_inputs("lookup_sharded")
+    assert [t.n_shards for t, _ in tables] == list(warp_emu.SHARD_COUNTS)
+    for t, qh in tables:
+        shard = t.query_host_arrays(qh)[3]
+        # every warp of 32 queries holds queries of more than one shard
+        assert all(len(set(shard[i:i + 32])) > 1
+                   for i in range(0, len(shard) - 31, 32))
+        assert (t.n_probes >= 5 and
+                len(warp_emu._table_keys(t)[0]) == len(tab.counts.nonzero()[0]))
+    for name in [n for n in warp_emu.KMER_CASES if n.startswith("score")]:
         tab, (codes, starts, k) = warp_emu.kmer_case_inputs(name)
         L, st = len(codes), starts.numpy().astype(np.int64)
         ends = np.append(st[1:], L)
