@@ -85,12 +85,31 @@ line):
      loopback port, each under its own timeout) polish m20 into two shards
      that process 0 merges: equal to m20.truth.fa, no sentinel left;
   14. the slice through the CLI with --profile-dir: equal to its golden,
-     and the trace names the DP and backtrack kernels.
+     and the trace names the DP and backtrack kernels;
+  15. QV through the device k-mer table: tools.qv on the card for
+     ecoli.fa and ecoli.truth.fa against ecoli.k21.yak and m20.fa against
+     m20.k21.yak, each a path (a contig of NP2_KMER_DEVICE_MIN k-mers or
+     more is one kmer_lookup launch, E. coli's ~4.6 M queries, no smaller
+     contig launches), each QvResult equal to the host route's (forced by
+     NP2_KMER_DEVICE_MIN above any batch); then kmer_lookup at E. coli's
+     real queries against its twin and the host search, with its times and
+     bound, as the kernel row of the QV launches' shape;
+  16. one E. coli chunk at K=8, B=128, W=1280: aggregate_windows on the
+     card equal to the host aggregation of the same windows (all five
+     fields), and dp_backtrack_csr on the card (a path: the v2 DP and the
+     backtrack launch) equal to dp_backtrack_csr_blob on the same chunk;
+  17. the data-prep chain: tools.make_big_fixture makes a ~2 Mb one-contig
+     fixture, which the CLI polishes on the card to its truth, with
+     tools.qv before and after (the polished QV at least the assembly's);
+     tools.make_fixture makes 2 contigs of ~30 kb whose reads go through
+     tools.align and tools.kmer_count again, and the CLI's cuda and oracle
+     engines polish that to the same bytes.
 Every path is driven with the launch counts set to 0 just before it and read
-just after. Then one JSON line of per-kernel numbers (launches per polish()
-path of phases 3-6, 8-10, 12 and 14 and their sum; the batcher checks'
-counts, and those of the whole-contig child, stay in their own lines), the
-seconds at the end of each phase, the card line, and the result line.
+just after. Then one JSON line of per-kernel numbers (launches per path of
+phases 3-6, 8-10, 12 and 14-17, and their sum; the batcher checks' counts,
+those of the whole-contig child and of the QV host routes stay in their own
+lines), the seconds at the end of each phase, the card line, and the result
+line.
 """
 
 from __future__ import annotations
@@ -121,6 +140,7 @@ KERNELS = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk",
            "backtrack_packed")
 KMER_KERNELS = ("kmer_lookup", "kmer_min_scores")
 SHARDED = "kmer_lookup_sharded"
+ALL_KERNELS = KERNELS + KMER_KERNELS + (SHARDED,)
 TWINS = ("consensus_dp_plain", "consensus_dp_base_plain",
          "consensus_dp_dynk_plain", "backtrack_plain", "kmer_lookup_plain",
          "kmer_min_scores_plain", "kmer_lookup_sharded_plain")
@@ -613,9 +633,7 @@ def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
     import torch
 
     from nextpolish2_tpu_torch.ops.kmer_table import (kmer_lookup,
-                                                      kmer_lookup_call,
-                                                      kmer_lookup_plain,
-                                                      probe_plain)
+                                                      kmer_lookup_plain)
 
     table, tab, (hi, lo, ct) = km["table"], km["tab"], km["planes"]
     q = np.concatenate([rng.choice(km["hashes"], Q // 2),
@@ -648,6 +666,28 @@ def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
     if Q < HOST_MAX:
         with host_route(table):
             host_ms = wall_ms(lambda: table.get(q, 5), 3)
+    row = lookup_row(km, q, qd, res[5], dev)
+    route = {"n": Q, "host_ms": host_ms,
+             "device_ms": wall_ms(lambda: table.get_device(q, 5), 5)}
+    return row, route
+
+
+def lookup_row(km: dict, q, qd: list, counts5, dev, **extra) -> dict:
+    """kmer_lookup's row on the queries q (uint64 hashes; qd their planes
+    on the card) at min_count 5, whose kernel counts are counts5: call,
+    kernel-only and device time, the twin's time, the bound from the probes
+    these queries need (16 B a query, a 32 B sector a probe), and the
+    searchsorted yardstick, which must give counts5."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.ops.kmer_table import (kmer_lookup,
+                                                      kmer_lookup_call,
+                                                      kmer_lookup_plain,
+                                                      probe_plain)
+
+    table, tab, (hi, lo, ct) = km["table"], km["tab"], km["planes"]
+    Q = len(q)
     qc = torch.from_numpy(((((q & np.uint64(table.pmask)) << np.uint64(54))
                             | (q >> np.uint64(10))) ^ km["flip"])
                           .view(np.int64)).to(dev)
@@ -659,10 +699,10 @@ def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
 
     lib = library()
     if not torch.equal(torch.where(lib >= 5, lib, 0).cpu(),
-                       torch.from_numpy(res[5])):
+                       torch.from_numpy(np.asarray(counts5))):
         fail(f"searchsorted yardstick != kmer_lookup at Q={Q}")
     probes = int(probe_plain(hi, lo, ct, *qd, tab.n_probes)[1].sum())
-    row = kmer_row(
+    return kmer_row(
         "kmer_lookup", Q, 0,
         median_ms(lambda: kmer_lookup(hi, lo, ct, *qd, 5, tab.n_probes),
                   TIMED_LAUNCHES),
@@ -673,10 +713,7 @@ def measure_lookup(km: dict, Q: int, dev, rng) -> tuple:
         kernel_ms=entry_ms("kmer_lookup", kmer_lookup_call(
             hi, lo, ct, *qd, 5, tab.n_probes)),
         **device_trace(lambda: kmer_lookup(hi, lo, ct, *qd, 5,
-                                           tab.n_probes)))
-    route = {"n": Q, "host_ms": host_ms,
-             "device_ms": wall_ms(lambda: table.get_device(q, 5), 5)}
-    return row, route
+                                           tab.n_probes)), **extra)
 
 
 def score_batch(seq: bytes, n_bases: int, rng) -> list:
@@ -1459,6 +1496,315 @@ def profile_cli_check(work: str) -> dict:
             "kernel_mentions": names}
 
 
+# phase 15's files: (label, assembly, table); E. coli's one contig is one
+# lookup launch of ~4.6 M queries, m20's 50 kb contigs stay on the host
+QV_RUNS = (("ecoli", "ecoli.fa", "ecoli.k21.yak"),
+           ("ecoli_truth", "ecoli.truth.fa", "ecoli.k21.yak"),
+           ("m20", "m20.fa", "m20.k21.yak"))
+
+
+def qv_phase(paths: "Paths", km: dict, dev, rows: dict) -> dict:
+    """Phase 15: tools.qv on the card (qv_of, the entry point's function)
+    for each QV_RUNS file at the default routing, then with the host route
+    forced (NP2_KMER_DEVICE_MIN above any batch): equal QvResults. Every
+    contig of NP2_KMER_DEVICE_MIN k-mers or more is one kmer_lookup launch
+    and no smaller one is. Then kmer_lookup's kernel row at E. coli's real
+    queries (one contig, Q > 2^22), against its twin and the host search,
+    stored under the shape bucket its QV launches counted in."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.io.fastx import read_fastx
+    from nextpolish2_tpu_torch.io.yak import KMER_DEVICE_MIN, seq_kmers
+    from nextpolish2_tpu_torch.ops.kmer_table import (kmer_lookup,
+                                                      kmer_lookup_plain)
+    from nextpolish2_tpu_torch.tools.qv import qv_of
+    from nextpolish2_tpu_torch.utils.torchcfg import bucket_pow2
+
+    out = {}
+    for label, fa, yak in QV_RUNS:
+        fa_p, yak_p = os.path.join(DATA, fa), os.path.join(DATA, yak)
+        qs = [len(seq_kmers(seq, 21)) for _, seq in read_fastx(fa_p)]
+        big = [q for q in qs if q >= KMER_DEVICE_MIN]
+        got = {}
+
+        def run(route: str):
+            t0 = time.time()
+            got[route] = qv_of(fa_p, yak_p, 5, dev)
+            sync(dev)
+            return {"wall_s": time.time() - t0, "result": str(got[route])}
+
+        dev_res = paths.run(
+            f"qv_{label}", ("kmer_lookup",) if big else (),
+            tuple(k for k in ALL_KERNELS
+                  if k != "kmer_lookup" or not big),
+            lambda: run("device"))
+        host_res = paths.run(
+            f"qv_{label}_host_route", (), ALL_KERNELS,
+            lambda: with_env({"NP2_KMER_DEVICE_MIN": 1 << 40}, run, "host"),
+            keep=False)
+        if got["device"] != got["host"]:
+            fail(f"QV of {fa}: device route {got['device']} != host route "
+                 f"{got['host']}")
+        launches = dev_res["launches"].get("kmer_lookup", 0)
+        if launches != len(big):
+            fail(f"QV of {fa}: {launches} kmer_lookup launches for "
+                 f"{len(big)} contigs of {KMER_DEVICE_MIN}+ k-mers")
+        r = got["device"]
+        out[label] = {
+            "file": fa, "table": yak, "contigs": len(qs),
+            "total_kmers": r.total_kmers, "missing_kmers": r.missing_kmers,
+            "error_rate": r.error_rate, "qv": r.qv,
+            "device_route_wall_s": dev_res["wall_s"],
+            "host_route_wall_s": host_res["wall_s"],
+            "lookup_launches": launches,
+            "lookup_ms": dev_res["kernel_ms"].get("kmer_lookup", 0.0),
+            "max_q_per_launch": max(big, default=0),
+            "max_q_per_contig": max(qs)}
+    if out["ecoli"]["max_q_per_launch"] < 1 << 22:
+        fail(f"E. coli's QV launch took {out['ecoli']['max_q_per_launch']} "
+             "queries, fewer than 2^22")
+
+    # the kernel at E. coli's real queries
+    table, tab, (hi, lo, ct) = km["table"], km["tab"], km["planes"]
+    seq = next(iter(read_fastx(os.path.join(DATA, "ecoli.fa"))))[1]
+    q = table.to_hash(seq_kmers(seq, table.ksize))
+    qd = [torch.from_numpy(a).to(dev) for a in tab.query_host_arrays(q)]
+    got = kmer_lookup(hi, lo, ct, *qd, 5, tab.n_probes)
+    want = kmer_lookup_plain(hi, lo, ct, *qd, 5, tab.n_probes)
+    sync(dev)
+    if not torch.equal(got, want):
+        fail("kmer_lookup != its twin on E. coli's QV queries")
+    with host_route(table):
+        host = table.get(q, 5)
+    counts5 = got.cpu().numpy()
+    if not np.array_equal(counts5, host):
+        fail("kmer_lookup != the host search on E. coli's QV queries")
+    bucket = bucket_pow2(len(q), 1 << 12)
+    rows[("kmer_lookup", bucket)] = lookup_row(
+        km, q, qd, counts5, dev, queries="QV of ecoli.fa", bucket=bucket,
+        missing=int((counts5 == 0).sum()))
+    line = {"phase": "qv_device_lookup", **out,
+            "kernel_row_at_real_q": {
+                k: rows[("kmer_lookup", bucket)][k]
+                for k in ("shape", "ms", "kernel_ms", "plain_ms", "bound_ms",
+                          "probes", "library_ms")}}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def aggregate_csr_phase(paths: "Paths", src: dict, dev) -> dict:
+    """Phase 16: one E. coli chunk at the production shape K=8, B=128,
+    W=1280 (its first 128 narrow K=8 windows). aggregate_windows on the
+    card against the host aggregation of the same windows (all five
+    fields); dp_backtrack_csr on the card from the chunk's CSR upload
+    (its launches counted as a path) against dp_backtrack_csr_blob on the
+    same chunk, output unpacked (all seven tensors)."""
+    import numpy as np
+    import torch
+
+    from nextpolish2_tpu_torch.ops.consensus import (aggregate_windows,
+                                                     dp_backtrack_csr,
+                                                     dp_backtrack_csr_blob,
+                                                     unpack_backtrack_out)
+    from nextpolish2_tpu_torch.pipeline.engine import csr_blob, pad_anchors
+    from nextpolish2_tpu_torch.pipeline.windows import (aggregate_csr_host,
+                                                        aggregate_host)
+
+    K, B, W = 8, 128, NARROW_W
+    (_, ids), = pick_lanes([src], K, B, W)
+    if len(ids) != B:
+        fail(f"{src['source']}: {len(ids)} distinct narrow windows, not {B}")
+    wb = src["wb"]
+    streams = [wb.window_stream(int(w)) for w in ids]
+    T = max(len(c) for c, _ in streams)
+    cols = np.full((B, T), W, np.int32)
+    keys = np.zeros((B, T), np.int32)
+    for i, (c, k) in enumerate(streams):
+        cols[i, : len(c)] = c
+        keys[i, : len(k)] = k
+    if (cols > W).any():
+        fail("a narrow window's stream reaches past the chunk width")
+    host = aggregate_host(wb, K, width=W, n_windows=B, win_idx=ids)
+    host_ms = wall_ms(lambda: aggregate_host(wb, K, width=W, n_windows=B,
+                                             win_idx=ids), 3)
+    ct, kt = torch.from_numpy(cols).to(dev), torch.from_numpy(keys).to(dev)
+    agg = aggregate_windows(ct, kt, W, K)
+    for name, want in zip(("key", "count", "coverage", "n_slots",
+                           "overflow"), host):
+        if not np.array_equal(getattr(agg, name).cpu().numpy(), want):
+            fail(f"aggregate_windows.{name} != the host aggregation")
+    agg_ms = median_ms(lambda: aggregate_windows(ct, kt, W, K), 5)
+
+    lead, seed, last_col = pad_anchors(src["anchors"], ids, B)
+    csr = aggregate_csr_host(wb, K, width=W, n_windows=B, win_idx=ids)
+    if csr is None:
+        fail("native CSR aggregation unavailable")
+    up = [torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
+          for a in csr[:8]]
+    over = torch.from_numpy(csr[8]).to(dev)
+    ld, sd, lc = (torch.from_numpy(np.asarray(a).astype(t)).to(dev)
+                  for a, t in ((lead, np.int32), (seed, np.uint8),
+                               (last_col, np.int32)))
+    max_steps = W + 128
+
+    def run_csr():
+        return dp_backtrack_csr(*up, over, ld, sd, lc, B, W, K, max_steps)
+
+    got = {}
+
+    def path():
+        got["out"] = run_csr()
+        sync(dev)
+
+    paths.run("dp_backtrack_csr_ecoli_chunk",
+              ("consensus_dp_v2", "backtrack_packed"),
+              tuple(k for k in ALL_KERNELS
+                    if k not in ("consensus_dp_v2", "backtrack_packed")),
+              path)
+    blob, P, Pd, Pe = csr_blob(csr[:-1], lead, seed, last_col, K)
+    blob_t = torch.from_numpy(blob).to(dev)
+
+    def run_blob():
+        return dp_backtrack_csr_blob(blob_t, B=B, W=W, K=K, P=P, Pd=Pd,
+                                     Pe=Pe, max_steps=max_steps)
+
+    (out, lvl), (ref, ref_lvl) = got["out"], unpack_backtrack_out(run_blob(),
+                                                                 lc)
+    for name, a, b in zip(("cols", "packed", "qv", "best", "n_steps",
+                           "truncated", "lvl_over"), out + (lvl,),
+                          ref + (ref_lvl,)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"dp_backtrack_csr {name} != dp_backtrack_csr_blob's")
+    line = {"phase": "aggregate_and_csr_program", "source": src["source"],
+            "K": K, "B": B, "W": W, "stream_len": T,
+            "aggregate_windows_ms": agg_ms, "host_aggregation_ms": host_ms,
+            "dp_backtrack_csr_ms": median_ms(run_csr, 5),
+            "dp_backtrack_csr_blob_ms": median_ms(run_blob, 5),
+            "host_overflow_windows": int(host[4].sum()),
+            "steps": int(out[4].sum())}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def port_tool(module: str, *args) -> float:
+    """python -m nextpolish2_tpu_torch.<module> ARGS in a child process
+    (its own timeout); fails on a non-zero exit. Returns its wall seconds."""
+    t0 = time.time()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", f"nextpolish2_tpu_torch.{module}", *args],
+            cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail(f"{module} timed out")
+    if r.returncode != 0:
+        fail(f"{module} exited {r.returncode}:\n{r.stderr[-3000:]}")
+    return time.time() - t0
+
+
+def cli_polish(paths: "Paths", phase: str, args: list, out: str, dev,
+               must: tuple = ("consensus_dp_v2", "backtrack_packed")
+               ) -> dict:
+    """The CLI in this process (as phase 14 runs it) on ARGS -o out on
+    `dev`, its launches counted as the path `phase`."""
+    from nextpolish2_tpu_torch import cli
+
+    def run():
+        t0 = time.time()
+        rc = cli.main([*args, "-L", "1000", "--device", dev.type, "-o",
+                       out])
+        if rc != 0:
+            fail(f"{phase}: the CLI exited {rc}")
+        return {"wall_s": time.time() - t0}
+
+    return paths.run(phase, must, ("consensus_dp_base", "consensus_dp_dynk",
+                                   SHARDED) if must else ALL_KERNELS, run)
+
+
+def data_prep_phase(paths: "Paths", work: str, dev,
+                    size: int = 2_000_000) -> dict:
+    """Phase 17: the port's data-prep chain on the card. A one-contig
+    chromosome fixture from tools.make_big_fixture, polished through the
+    CLI (equal to its truth), with tools.qv before and after (the polished
+    QV at least the assembly's); and a small aligned fixture from
+    tools.make_fixture whose reads go through tools.align and
+    tools.kmer_count again, polished by the CLI's cuda and oracle engines
+    (equal outputs)."""
+    from nextpolish2_tpu_torch.io.bam import BamReader
+    from nextpolish2_tpu_torch.io.fastx import read_fastx
+    from nextpolish2_tpu_torch.tools.qv import qv_of
+
+    chr_ = os.path.join(work, "chr")
+    gen_s = port_tool("tools.make_big_fixture", chr_, "--contigs", "1",
+                      "--size", str(size), "--small", "0", "--cov", "30",
+                      "--seed", "11")
+    files = [chr_ + ".bam", chr_ + ".fa", chr_ + ".k21.yak"]
+    pol = cli_polish(paths, "data_prep_chr_cli", files,
+                     chr_ + ".polished.fa", dev)
+    fasta_equal(chr_ + ".polished.fa", chr_ + ".truth.fa")
+    qv = {}
+    for label, fa in (("assembly", chr_ + ".fa"),
+                      ("polished", chr_ + ".polished.fa")):
+        def run():
+            t0 = time.time()
+            qv[label] = qv_of(fa, files[2], 5, dev)
+            return {"wall_s": time.time() - t0, "result": str(qv[label])}
+
+        paths.run(f"data_prep_qv_{label}", ("kmer_lookup",),
+                  ("consensus_dp_v2", "consensus_dp_base",
+                   "consensus_dp_dynk", "backtrack_packed",
+                   "kmer_min_scores", SHARDED), run)
+    if qv["polished"].qv < qv["assembly"].qv:
+        fail(f"QV fell in polishing: {qv['assembly']} -> {qv['polished']}")
+    bases = sum(len(s) for _, s in read_fastx(chr_ + ".fa"))
+
+    small = os.path.join(work, "small")
+    small_gen_s = port_tool("tools.make_fixture", small, "--contigs", "2",
+                            "--size", "30000", "--cov", "30", "--seed", "13")
+    with open(small + ".reads.fa", "wb") as f:
+        for _tid, recs in BamReader(small + ".bam").by_contig():
+            for r in recs:
+                f.write(b">" + r.qname + b"\n" + r.seq + b"\n")
+    align_s = port_tool("tools.align", small + ".fa", small + ".reads.fa",
+                        small + ".realigned.bam")
+    count_s = port_tool("tools.kmer_count", "-k", "21", "-o",
+                        small + ".reads", small + ".reads.fa")
+    args = [small + ".realigned.bam", small + ".fa", small + ".reads.k21.yak"]
+    cuda = cli_polish(paths, "data_prep_small_cli", args, small + ".cuda.fa",
+                      dev)
+    oracle = cli_polish(paths, "data_prep_small_oracle",
+                        args + ["--engine", "oracle"], small + ".oracle.fa",
+                        dev, must=())
+    with open(small + ".cuda.fa", "rb") as a, \
+            open(small + ".oracle.fa", "rb") as b:
+        if a.read() != b.read():
+            fail("the small fixture: --engine cuda != --engine oracle")
+    truth = dict(read_fastx(small + ".truth.fa"))
+    same = sum(truth.get(n) == s for n, s in read_fastx(small + ".cuda.fa"))
+    line = {"phase": "data_prep_chain",
+            "chromosome": {"bases": bases, "make_big_fixture_s": gen_s,
+                           "polish_wall_s": pol["wall_s"],
+                           "identical_to": "truth",
+                           "qv_assembly": str(qv["assembly"]),
+                           "qv_polished": str(qv["polished"])},
+            "small": {"contigs": len(truth), "make_fixture_s": small_gen_s,
+                      "align_s": align_s, "kmer_count_s": count_s,
+                      "cuda_wall_s": cuda["wall_s"],
+                      "oracle_wall_s": oracle["wall_s"],
+                      "cuda_equals_oracle": True,
+                      "contigs_equal_to_truth": f"{same}/{len(truth)}"}}
+    print(json.dumps(line), flush=True)
+    return line
+
+
 def with_env(values: dict, fn, *args, **kw):
     with env_set(**values):
         return fn(*args, **kw)
@@ -1543,7 +1889,6 @@ def main() -> int:
     # phase 3: the main path (the k-mer routes stay below their thresholds
     # on every bundled contig, and no contig is long enough to segment)
     paths = Paths()
-    dp_all = ("consensus_dp_v2", "consensus_dp_base", "consensus_dp_dynk")
     off = KMER_KERNELS + (SHARDED,)
     paths.run(
         "main_path_ecoli", ("consensus_dp_v2", "backtrack_packed"),
@@ -1685,6 +2030,16 @@ def main() -> int:
         paths.run("cli_profile_slice", with_v2, not_v2 + (SHARDED,),
                   lambda: profile_cli_check(work))
         lap("14_cli_profile")
+        # phase 15: QV through the device k-mer table
+        qv_phase(paths, kmer["km"], dev, rows)
+        lap("15_qv_device_lookup")
+        # phase 16: aggregate_windows and dp_backtrack_csr on an E. coli
+        # chunk
+        aggregate_csr_phase(paths, sources[0], dev)
+        lap("16_aggregate_and_csr")
+        # phase 17: the data-prep chain
+        data_prep_phase(paths, work, dev)
+        lap("17_data_prep_chain")
 
     # any other shape a path launched gets measured too (the twins once)
     for key in sorted(paths.shapes):
@@ -1709,10 +2064,10 @@ def main() -> int:
         r["launches_by_path"] = {phase: by_shape[key] for phase, by_shape
                                  in paths.by_path.items() if key in by_shape}
         r["launches"] = sum(r["launches_by_path"].values())
-    for name in dp_all + ("backtrack_packed",) + KMER_KERNELS + (SHARDED,):
+    for name in ALL_KERNELS:
         if not any(r["launches"] for k, r in rows.items() if k[0] == name):
             fail(f"{name} was launched on no path")
-    lap("15_other_shapes")
+    lap("18_other_shapes")
 
     print(json.dumps({"phase": "timeline", "seconds_at_end": TIMELINE}))
     print(json.dumps({"kernels": [rows[k] for k in sorted(rows)]}))

@@ -1,5 +1,6 @@
 """The per-chunk device program in PyTorch: blob parse, CSR assembly, DP and
-backtrack dispatch, output pack.
+backtrack dispatch, output pack; and the device form of the pileup
+aggregation (aggregate_windows).
 
 Counterpart of nextpolish2_tpu/ops/consensus.py::dp_backtrack_csr_blob (one
 uint8 blob in; layout: pipeline.windows.pack_csr_blob) and of its dense-table
@@ -36,6 +37,122 @@ class SlotTables(NamedTuple):
     count: torch.Tensor              # int32 [B, W, K]
     coverage: torch.Tensor           # int32 [B, W]
     n_slots: Optional[torch.Tensor]  # int32 [B, W]; None where only "v2"/"base" run
+    # bool [B]: a column of the window has more than K slots (aggregate_windows)
+    overflow: Optional[torch.Tensor] = None
+
+
+def _b3d_from_key(key: torch.Tensor) -> torch.Tensor:
+    """b3-delta of packed keys: delta + 2 where flags hold 0b0101, 1 where
+    only bit 0 is set, else 0."""
+    flags = (key >> 12) & 0xF
+    delta = (key >> 16) & 0xFFFF
+    return torch.where((flags & 0b0101) == 0b0101, delta + 2,
+                       torch.where((flags & 1) == 1, torch.ones_like(key),
+                                   torch.zeros_like(key)))
+
+
+def aggregate_windows(cols: torch.Tensor, keys: torch.Tensor, width: int,
+                      K: int) -> SlotTables:
+    """[B, T] (col, key) streams -> per-column slot tables, on the inputs'
+    device: the JAX aggregate_windows, field for field. col == width marks
+    padding. Each column's distinct keys become its slots in the reference's
+    order (b3-delta, then first occurrence in the stream); a window with a
+    column of more than K slots is flagged in `overflow` and keeps its first
+    K. Plain tensor code: no production path runs it (the host aggregation
+    of pipeline/windows.py serves them all); it is the device form of the
+    same function.
+
+    Every tensor is int32 but the packed sort keys, which are int64:
+    torch.sort takes one key where the JAX program sorts on two and three."""
+    i32, i64 = torch.int32, torch.int64
+    cols = cols.to(i32)
+    keys = keys.to(i32)
+    B, T = cols.shape
+    dev = cols.device
+    if width.bit_length() + 17 + T.bit_length() > 63:
+        raise ValueError(f"aggregate_windows: width {width} and stream "
+                         f"length {T} overflow the packed sort key")
+    # stable sort by (col, key) in signed int32 order: key + 2^31 maps the
+    # signed keys onto [0, 2^32) in order, below the column's bits
+    order = torch.sort((cols.to(i64) << 32) + (keys.to(i64) + (1 << 31)),
+                       dim=1, stable=True).indices
+    scol = cols.gather(1, order)
+    skey = keys.gather(1, order)
+    sidx = order.to(i32)
+
+    neg = torch.full((B, 1), -1, dtype=i32, device=dev)
+    prev_col = torch.cat([neg, scol[:, :-1]], 1)
+    prev_key = torch.cat([neg, skey[:, :-1]], 1)
+    head = ((scol != prev_col) | (skey != prev_key)) & (scol < width)
+    seg_id = torch.cumsum(head.to(i32), 1, dtype=i32) - 1  # -1: pre-first pad
+    ones = (scol < width).to(i32)
+    seg_ok = seg_id >= 0
+    seg_idx = torch.where(seg_ok, seg_id, T - 1).to(i64)
+    zero = torch.zeros_like(scol)
+
+    def seg_reduce(fill: int, vals: torch.Tensor, how: str) -> torch.Tensor:
+        out = torch.full((B, T), fill, dtype=i32, device=dev)
+        return out.scatter_reduce_(1, seg_idx, vals, reduce=how,
+                                   include_self=True)
+
+    first_row = seg_ok & head  # each segment's first row, in stream order
+    seg_count = seg_reduce(0, torch.where(seg_ok, ones, zero), "sum")
+    seg_col = seg_reduce(width, torch.where(first_row, scol, width), "amin")
+    seg_key = seg_reduce(0, torch.where(first_row, skey, zero), "amax")
+    seg_first = seg_reduce(T, torch.where(first_row, sidx, T), "amin")
+    seg_b3d = _b3d_from_key(seg_key)
+
+    # order the segments by (col, b3d, first occurrence), the three packed
+    # in one int64 (col < 2^width_bits, b3d <= 0xFFFF + 2 < 2^17, first <=
+    # T). `first` is unique among real segments; the padding segments tie
+    # on every field (col width, b3d 0, first T, key 0, count 0), so their
+    # order among themselves changes nothing
+    fb = T.bit_length()
+    okey64 = ((seg_col.to(i64) << (17 + fb)) | (seg_b3d.to(i64) << fb)
+              | seg_first.to(i64))
+    o = torch.sort(okey64, dim=1, stable=True).indices
+    ocol = seg_col.gather(1, o)
+    ob3d = seg_b3d.gather(1, o)
+    okey = seg_key.gather(1, o)
+    ocount = seg_count.gather(1, o)
+
+    # rank within the column: distance from the column's first segment
+    t_iota = torch.arange(T, dtype=i32, device=dev).expand(B, T)
+    col_change = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                            ocol[:, 1:] != ocol[:, :-1]], 1)
+    run_start = torch.cummax(torch.where(col_change, t_iota, -1), 1).values
+    rank = t_iota - run_start
+    valid = ocol < width
+    overflow = (valid & (rank >= K)).any(1)
+
+    # scatter into tables with one spare column (width) that takes every
+    # dropped segment, cut off afterwards
+    keep = valid & (rank < K)
+    ccol = torch.where(keep, ocol, width).to(i64)
+    crank = torch.where(keep, rank, K - 1).to(i64)
+    real = ccol < width
+    b = torch.arange(B, dtype=i64, device=dev)[:, None]
+    flat_slot = ((b * (width + 1) + ccol) * K + crank).reshape(-1)
+    flat_col = (b * (width + 1) + ccol).reshape(-1)
+
+    def table(n: int, fill: int, idx, vals, how: str) -> torch.Tensor:
+        out = torch.full((n,), fill, dtype=i32, device=dev)
+        return out.scatter_reduce_(0, idx, vals.reshape(-1), reduce=how,
+                                   include_self=True)
+
+    key_tab = table(B * (width + 1) * K, -1, flat_slot,
+                    torch.where(real, okey, -1), "amax")
+    cnt_tab = table(B * (width + 1) * K, 0, flat_slot,
+                    torch.where(real, ocount, zero), "amax")
+    coverage = table(B * (width + 1), 0, flat_col,
+                     torch.where(real & (ob3d == 0), ocount, zero), "sum")
+    n_slots = table(B * (width + 1), 0, flat_col, real.to(i32), "sum")
+    return SlotTables(
+        key=key_tab.reshape(B, width + 1, K)[:, :width].contiguous(),
+        count=cnt_tab.reshape(B, width + 1, K)[:, :width].contiguous(),
+        coverage=coverage.reshape(B, width + 1)[:, :width].contiguous(),
+        n_slots=n_slots.reshape(B, width + 1)[:, :width].contiguous(),
+        overflow=overflow)
 
 
 def decode_keys(key: torch.Tensor, col: torch.Tensor):
@@ -250,6 +367,26 @@ def pack_backtrack_out(words, best, n_steps, trunc, lvl_over) -> torch.Tensor:
     return torch.cat([_to_u16_bits(words & 0x7FFF), _to_u16_bits(mlohi)], 1)
 
 
+def unpack_backtrack_out(arr: torch.Tensor, last_col: torch.Tensor):
+    """The packed output back into the JAX dp_backtrack's (out, lvl_over),
+    on the output's device: out = (cols int16 [B, max_steps], packed uint8,
+    qv uint8, best int32 [B], n_steps int32, truncated bool), lvl_over
+    bool [B]. Columns are rebuilt from last_col as in
+    decode_backtrack_words."""
+    a = arr.to(torch.int32) & 0xFFFF
+    words = a[:, :-8]
+    m = a[:, -8:].to(torch.int64)
+    meta = m[:, 0::2] | (m[:, 1::2] << 16)
+    meta = torch.where(meta >= 1 << 31, meta - (1 << 32), meta).to(torch.int32)
+    dec = (words >> 6) & 1
+    cum = torch.cumsum(dec, 1, dtype=torch.int32)
+    cols = (last_col.to(torch.int32)[:, None] - (cum - dec)).to(torch.int16)
+    out = (cols, (words & 0x7F).to(torch.uint8),
+           ((words >> 7) & 0xFF).to(torch.uint8), meta[:, 0], meta[:, 1],
+           meta[:, 2] != 0)
+    return out, meta[:, 3] != 0
+
+
 def decode_backtrack_words(arr, last_col) -> tuple:
     """Host-side inverse of pack_backtrack_out (numpy): returns (cols u16,
     packed u8, qv u8, best i32, truncated bool, lvl_over bool). Columns are
@@ -345,6 +482,34 @@ def dp_backtrack_csr_blob(blob, *, B: int, W: int, K: int, P: int, Pd: int,
         blob, B=B, W=W, K=K, P=P, Pd=Pd, Pe=Pe, device=device)
     return dp_backtrack(SlotTables(key, cnt, cov, None), lead, seed_u8,
                         last_col, max_steps, dp_variant)
+
+
+def dp_backtrack_csr(ns_u8, keylo, clo, dgap, dval, eidx, xkey, xcnt,
+                     overflow, lead_abs, seed_anchor, last_col, B: int,
+                     W: int, K: int, max_steps: int,
+                     dp_variant: str = "v2"):
+    """DP + backtrack from the flat CSR upload (pipeline.windows.split_csr,
+    the dgap stream raw as encode_dgap gives it), on the inputs' device: the
+    JAX dp_backtrack_csr, with dp_variant ("v2" or "base") in place of
+    use_pallas. assemble_csr, then the DP and backtrack kernels on a CUDA
+    device (their plain twins on the CPU). Returns (out, lvl_over) as the
+    JAX program does (unpack_backtrack_out); lvl_over is all False, as on
+    the JAX Pallas route, since the DP has no level cap. `overflow` rides
+    along unread, as in the JAX program."""
+    if dp_variant not in ("v2", "base"):
+        raise ValueError(f"dp_variant {dp_variant!r} cannot run on the CSR "
+                         "upload (expected 'v2' or 'base')")
+    i32 = torch.int32
+    parts = [t.to(i32) for t in (ns_u8, keylo, clo, dgap, dval, eidx, xkey,
+                                 xcnt)]
+    key, cnt, cov = assemble_csr(*parts, B, W, K)
+    last_col = last_col.to(i32).contiguous()
+    packed = dp_backtrack(
+        SlotTables(key, cnt, cov, None, overflow),
+        lead_abs.to(i32).contiguous(),
+        seed_anchor.to(torch.uint8).contiguous(), last_col, max_steps,
+        dp_variant)
+    return unpack_backtrack_out(packed, last_col)
 
 
 # --------------------------------------------------------------------------

@@ -47,13 +47,13 @@ LANE_SMALL = 16
 
 
 def _tier_lane_b(tier) -> int:
-    from .engine import CHUNK_B_TIERS, K_SMALL
+    from .engine import CHUNK_B_TIERS, K_SMALL, _chunk_b_k48
 
     if isinstance(tier, tuple) and tier[1] is not None:
         if tier[1] in CHUNK_B_TIERS:
             return max(LANE_B, int(CHUNK_B_TIERS[tier[1]]))
         if tier[1] > K_SMALL:  # fat tier of a K != 48 config
-            return max(LANE_B, int(CHUNK_B_TIERS[48]))
+            return max(LANE_B, _chunk_b_k48())
     return LANE_B
 
 

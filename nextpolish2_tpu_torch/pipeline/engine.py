@@ -77,8 +77,28 @@ from .windows import (WindowOverflow, aggregate_csr_host, aggregate_csr_parts,
 
 K_SMALL = 8   # small DP-kernel slot tier
 K_DENSE = 4   # dense width of the sparse upload; deeper slots are exceptions
-CHUNK_B_TIERS = {K_SMALL: 512, 48: 128}
-PIPELINE_DEPTH = 3  # chunks in flight: host aggregation overlaps the device
+
+
+def _chunk_b_k8() -> int:
+    """Full-chunk batch of the K=8 tier, which most real windows take
+    (NP2_CHUNK_B_K8, default 512)."""
+    return int(os.environ.get("NP2_CHUNK_B_K8", "512"))
+
+
+def _chunk_b_k48() -> int:
+    """Full-chunk batch of the fat K tier (NP2_CHUNK_B_K48, default 128)."""
+    return int(os.environ.get("NP2_CHUNK_B_K48", "128"))
+
+
+def pipeline_depth() -> int:
+    """Chunks a contig keeps in flight, so that the host aggregation of one
+    overlaps the device work of the earlier ones (NP2_PIPELINE_DEPTH,
+    default 3; read when a contig's chunk loop starts)."""
+    return int(os.environ.get("NP2_PIPELINE_DEPTH", "3"))
+
+
+# read at import, as in the JAX package; no value changes the output
+CHUNK_B_TIERS = {K_SMALL: _chunk_b_k8(), 48: _chunk_b_k48()}
 
 # process-wide engine counters (chip_smoke.py and tests read them); contig
 # threads update them under _stats_lock
@@ -120,7 +140,7 @@ def chunk_b_tiers(fat_k: int) -> dict:
     """CHUNK_B_TIERS with the fat tier guaranteed at the actual
     cfg.max_kmers_per_col (window_ktiers returns {K_SMALL, K})."""
     t = dict(CHUNK_B_TIERS)
-    t.setdefault(int(fat_k), CHUNK_B_TIERS[48])
+    t.setdefault(int(fat_k), _chunk_b_k48())
     return t
 
 
@@ -597,6 +617,7 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
             runner = MeshRunner(mesh)
         # software pipeline: aggregate + submit chunks ahead BEFORE pulling,
         # so host pileup prep overlaps the device's DP of earlier chunks
+        depth = pipeline_depth()
         pending = collections.deque()
         for ids, cwidth, ck, pad_b in chunks:
             if variants.dynk:
@@ -621,7 +642,7 @@ def device_consensus_stream(alignseqs: List[AlignTags], n_pos: int,
                                            dp_variant=variants.blob)
             _stat("chunks")
             pending.append((ids, overflow, handle, last_col))
-            if len(pending) >= PIPELINE_DEPTH:
+            if len(pending) >= depth:
                 harvest(pending.popleft())
         while pending:
             harvest(pending.popleft())

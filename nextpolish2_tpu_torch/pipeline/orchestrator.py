@@ -276,7 +276,11 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
     ref_names = [n for n, _ in reader.references]
     name_to_tid = {n: i for i, n in enumerate(ref_names)}
     contig_records: Dict[int, list] = {}
-    if not use_native:
+    # the oracle engine reads records, never the native ingest: it needs
+    # them whether or not the native library loaded (the JAX package's
+    # orchestrator loads them only without it, and its oracle engine then
+    # sees no read and returns the assembly unchanged)
+    if not use_native or engine != "cuda":
         sec_seqs = retrieve_secondary_seqs(bam_path) if cfg.use_secondary else {}
         for tid, recs in reader.by_contig():
             if cfg.use_secondary:

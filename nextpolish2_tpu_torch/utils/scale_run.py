@@ -6,8 +6,8 @@ truth: the port's chromosome-scale run.
 
 PREFIX.{fa,bam,k21.yak,truth.fa} is one contig long enough that the default
 routing (NP2_SEG_MIN, 48 Mb) segments it, made beforehand by
-`tools/make_big_fixture.py PREFIX --contigs 1 --size 80000000 --small 0
---cov 30 --seed 11` (a 62.2 Mb contig). The contig is polished by
+`python3 -m nextpolish2_tpu_torch.tools.make_big_fixture PREFIX --contigs 1
+--size 80000000 --small 0 --cov 30 --seed 11` (a 62.2 Mb contig). The contig is polished by
 `python -m nextpolish2_tpu_torch.cli ... -L 1000 --timing` on the card at
 the default settings, once more for each --run under its environment
 settings, and with --whole under NP2_NO_SEG=1 (the whole-contig engine).

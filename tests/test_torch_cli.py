@@ -69,3 +69,36 @@ def test_cli_batch_line_matches_jax(monkeypatch, capsys, tmp_path):
     assert got == want
     assert got == ("Device batches: 7 (cross-contig lane fill 96.3%, 5 "
                    "CSR-direct, dense fallbacks: {'no_csr_closure': 2})")
+
+
+def test_cli_oracle_engine_polishes_from_the_bam(tmp_path):
+    """--engine oracle reads the BAM's records even where the native library
+    loaded (the JAX orchestrator hands its oracle engine no read then, and
+    the assembly comes back unchanged): on a fixture whose assembly carries
+    errors, the output is the JAX oracle's polish_contig of the same
+    records, equals the cuda engine's (on the CPU) and differs from the
+    assembly."""
+    from nextpolish2_tpu.io.bam import BamReader
+    from nextpolish2_tpu.io.fastx import read_fastx
+    from nextpolish2_tpu.io.yak import load_yak
+    from nextpolish2_tpu.models.oracle import consensus_to_bytes, polish_contig
+    from nextpolish2_tpu_torch import cli
+    from nextpolish2_tpu_torch.tools import make_fixture
+
+    prefix = str(tmp_path / "fx")
+    assert make_fixture.main([prefix, "--contigs", "1", "--size", "20000",
+                              "--cov", "8", "--seed", "3"]) == 0
+    files = [prefix + ".bam", prefix + ".fa", prefix + ".k21.yak"]
+    outs = {}
+    for engine in ("oracle", "cuda"):
+        outs[engine] = tmp_path / f"{engine}.fa"
+        assert cli.main([*files, "-L", "1000", "--device", "cpu",
+                         "--engine", engine, "-o", str(outs[engine])]) == 0
+    name, asm = next(iter(read_fastx(prefix + ".fa")))
+    recs = next(BamReader(prefix + ".bam").by_contig())[1]
+    spec = consensus_to_bytes(polish_contig(
+        asm, recs, [load_yak(files[2])], PolishConfig(min_ctg_len=1000)))
+    got = list(read_fastx(str(outs["oracle"])))
+    assert [n.split()[0] for n, _ in got] == [name]
+    assert got[0][1] == spec != asm
+    assert outs["oracle"].read_bytes() == outs["cuda"].read_bytes()

@@ -61,7 +61,7 @@ print("ok")
     assert res.stdout.strip() == "ok"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, capsys):
     from nextpolish2_tpu_torch import cli
     from nextpolish2_tpu_torch.config import PolishConfig
     from nextpolish2_tpu_torch.pipeline.engine import polish_contig_cuda
@@ -94,6 +94,13 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert get_active_batcher() is None
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceBatcher("cuda")
+    # the QV tool: on the card by default, never on the host unasked
+    from nextpolish2_tpu_torch.tools import qv
+
+    capsys.readouterr()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        qv.main([f"{base}/slice.fa", f"{base}/k21.yak"])
+    assert capsys.readouterr().out == ""
 
 
 def test_mesh_modules_load_no_jax_and_raise_without_cuda(monkeypatch,
