@@ -1030,13 +1030,10 @@ class Paths:
         engine.STATS.clear()
         timing.reset()
         timing.enable()
-        cc.time_launches(True)
         res = fn()
-        cc.time_launches(False)
         timing.enable(False)
         launches = dict(cc.LAUNCHES)
         by_shape = dict(cc.SHAPE_LAUNCHES)
-        kernel_ms = cc.launch_ms()
         for name in must_launch:
             if launches.get(name, 0) == 0:
                 fail(f"{phase}: {name} was not launched")
@@ -1049,7 +1046,6 @@ class Paths:
         self.shapes.update(by_shape)
         if keep:
             self.by_path[phase] = by_shape
-        device_ms = sum(kernel_ms.values())
         res = dict(res or {})
         res.update({"windows": engine.STATS["windows"],
                     "chunks": engine.STATS["chunks"],
@@ -1059,10 +1055,7 @@ class Paths:
                         engine.STATS["host_fallback_windows"],
                     "oracle_fallback_contigs":
                         engine.STATS["oracle_fallback_contigs"],
-                    "launches": launches, "kernel_ms": kernel_ms,
-                    "kernel_ms_total": device_ms})
-        if "wall_s" in res:
-            res["kernel_idle_share"] = 1 - device_ms / 1e3 / res["wall_s"]
+                    "launches": launches})
         print(json.dumps({"phase": phase, **res,
                           "by_shape": {shape_label(key): c for key, c
                                        in sorted(by_shape.items())}}),
@@ -1558,7 +1551,6 @@ def qv_phase(paths: "Paths", km: dict, dev, rows: dict) -> dict:
             "device_route_wall_s": dev_res["wall_s"],
             "host_route_wall_s": host_res["wall_s"],
             "lookup_launches": launches,
-            "lookup_ms": dev_res["kernel_ms"].get("kmer_lookup", 0.0),
             "max_q_per_launch": max(big, default=0),
             "max_q_per_contig": max(qs)}
     if out["ecoli"]["max_q_per_launch"] < 1 << 22:

@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..utils.seqcodes import seq_to_codes
-from ..utils.timing import stage
+from ..utils.timing import count, stage
 
 YAK_MAGIC = b"YAK\x02"
 YAK_COUNTER_BITS = 10
@@ -290,6 +290,7 @@ class KmerTable:
 
         from ..ops.kmer_table import kmer_lookup
 
+        count("kmer.queries_device", len(hashes))
         tab, hi, lo, ct = self.device_table()
         q = [torch.from_numpy(a).to(hi.device)
              for a in tab.query_host_arrays(hashes)]
@@ -326,6 +327,7 @@ class KmerTable:
                     mesh, axis="kmer", min_count=min_count,
                     n_probes=tab.n_probes)
         nq = len(hashes)
+        count("kmer.queries_device", nq)
         pq = bucket_pow2(nq, 4096)
         if pq != nq:
             hashes = np.concatenate(
@@ -358,6 +360,7 @@ class KmerTable:
                              KMER_DEVICE_MIN):
             with stage("kmer_get_device"):
                 return self.get_device(hashes, min_count)
+        count("kmer.queries_host", len(hashes))
         if len(self.keys) == 0:
             return np.zeros(len(hashes), dtype=np.uint16)
         keys = hashes >> _U64(YAK_COUNTER_BITS)

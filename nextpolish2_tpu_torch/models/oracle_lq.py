@@ -19,6 +19,7 @@ import numpy as np
 
 from ..config import PolishConfig
 from ..io.yak import INVALID_KMER, KmerTable
+from ..utils import timing
 from ..utils.seqcodes import CODE2ASCII
 from .louvain import assign_data, insert_data, new_data, phase_communities
 from .oracle_align import AlignTags
@@ -113,6 +114,7 @@ def extract_alleles(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
                                          table.ksize, max_can)
         if res is not None:
             region, order, soff, seq, prehash, has = res
+            timing.count("lq.alleles", len(region))
             if order_map is not None:
                 order = order_map[order].astype(np.int32, copy=False)
             with stage("extract_materialize"):
@@ -225,6 +227,7 @@ def _extract_alleles_py(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
             k_fwd = ((k_fwd << two) | qb) & mask
             k_rev = (k_rev >> two) | ((three ^ qb) << shift)
         hashes = table.to_hash(np.minimum(k_fwd, k_rev)).astype(np.uint64)
+    timing.count("lq.alleles", len(pend))
     for lqseq, idx, chars, row in pend:
         lqseq.seqs.append(LqSeq(
             order=int(order_map[idx]) if order_map is not None else idx,
@@ -480,7 +483,8 @@ def phase_reads_by_lqseqs(lqseqs: List[LqRegion], asref: bool,
     data, ref_weight, invalid_ids = _phase_edges_vec(lqseqs, asref,
                                                      use_all_reads)
     new_invalid = phase_communities(data, ref_weight)
-    new_invalid.extend(invalid_ids)
+    new_invalid.extend(invalid_ids)  # disjoint: no invalid id is a node
+    timing.count("phasing.reads_dropped", len(new_invalid))
     return new_invalid
 
 
@@ -693,9 +697,16 @@ def update_consensus_with_lqseqs(lqseqs: List[LqRegion],
     kept segments and sudoseed blocks. If a labeled region's start position is
     absent at/after the cursor the reference's scan never matches again and no
     further region is spliced — the `break` mirrors that exactly.
+
+    While the recorder is on, each splice whose seed differs from the bytes
+    it replaces counts in lq.regions_changed; the recheck's splices
+    (reupdate_consensus_with_lqseqs) come through here too, so a region
+    that the recheck splices again with other bytes counts again.
     """
     pos, base = consensus.pos, consensus.base
     n = len(pos)
+    on = timing.enabled()
+    changed = 0
     pos_parts: List[np.ndarray] = []
     base_parts: List[np.ndarray] = []
     c = 0
@@ -711,7 +722,10 @@ def update_consensus_with_lqseqs(lqseqs: List[LqRegion],
         pos_parts.append(np.full(len(seed), lq.start, dtype=np.int64))
         base_parts.append(seed)
         c = int(np.searchsorted(pos, lq.end, side="right"))
+        if on and base[i0:c].tobytes() != lq.sudoseed:
+            changed += 1
         li = _next_labeled(lqseqs, li, label)
+    timing.count("lq.regions_changed", changed)
     pos_parts.append(pos[c:])
     base_parts.append(base[c:])
     return Consensus(pos=np.concatenate(pos_parts),

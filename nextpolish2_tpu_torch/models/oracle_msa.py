@@ -18,6 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils import timing
 from .oracle_align import AlignTags
 
 NEG_INF = -(2**62)  # i64::MIN >> 1 equivalent guard (main.rs:1661)
@@ -359,6 +360,7 @@ def lq_from_qv_stream(pos: np.ndarray, base: np.ndarray, qv: np.ndarray,
                 lq_s = None
             k += 1
 
+    timing.count("lq.regions", len(lqseqs))
     return Consensus(pos=pos[::-1].copy(),
                      base=base[::-1].astype(np.uint8)), lqseqs
 

@@ -40,6 +40,7 @@ import time
 
 import torch
 
+from ..utils.timing import stage
 from .consensus import (HEAD_Q, NEG_INF, backtrack_start,
                         backtrack_state_tables, decode_keys,
                         pack_backtrack_out)
@@ -74,62 +75,30 @@ BUILD_INFO: dict = {}  # name -> {"seconds", "log"} of this process's builds
 _libs: dict = {}
 _fns: dict = {}                 # name -> the C entry point, resolved once
 _lock = threading.Lock()        # builds and library loads
-_count_lock = threading.Lock()  # LAUNCHES, SHAPE_LAUNCHES, _launch_events
-# (name, start event, end event) per kernel launch while timing is on
-_launch_events: list = []
-_timing = False
+_count_lock = threading.Lock()  # LAUNCHES, SHAPE_LAUNCHES
 
 
 def reset_counts() -> None:
     with _count_lock:
         LAUNCHES.clear()
         SHAPE_LAUNCHES.clear()
-        _launch_events.clear()
 
 
-def _count(name: str, shape=None, events=None) -> None:
+def _count(name: str, shape=None) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
         if shape is not None:
             SHAPE_LAUNCHES[(name, *shape)] += 1
-        if events is not None:
-            _launch_events.append((name, *events))
-
-
-def time_launches(flag: bool = True) -> None:
-    """Bracket every kernel launch with CUDA events (no synchronisation);
-    launch_ms() sums them."""
-    global _timing
-    _timing = flag
-
-
-def launch_ms() -> dict:
-    """Kernel name -> total device milliseconds of its timed launches."""
-    out: dict = collections.Counter()
-    with _count_lock:
-        events = list(_launch_events)
-    for name, e0, e1 in events:
-        e1.synchronize()
-        out[name] += e0.elapsed_time(e1)
-    return dict(out)
 
 
 def _launch(name: str, shape, fn, *args) -> None:
     """Launch through the C entry point `fn`, raise on a refused launch,
     count it, per shape too: (K, B, W) for the chunk kernels, the
     power-of-two bucket of the work size (floor 4096) for the k-mer ones."""
-    if _timing:
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-    events = None
-    if _timing:
-        e1.record()
-        events = (e0, e1)
-    _count(name, shape, events)
+    _count(name, shape)
 
 
 def _nvcc() -> str:
@@ -193,11 +162,12 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    build_kernels()
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = _libs[name] = ctypes.CDLL(_so_path(name))
+    with stage("kernel_build." + name):  # the load, and a build it needs
+        build_kernels()
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                lib = _libs[name] = ctypes.CDLL(_so_path(name))
     return lib
 
 

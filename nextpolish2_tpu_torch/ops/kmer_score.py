@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils import timing
 from ..utils.torchcfg import bucket_pow2
 from .consensus_cuda import _check, _count, _fn
 from .kmer_table import (MAX_PROBES, MAX_SLOTS, _low32, entries_ptr,
@@ -174,6 +175,10 @@ def device_min_kscores(table, seqs, min_count: int) -> Optional[np.ndarray]:
     batch). `table` is an io.yak.KmerTable with use_device set."""
     if not seqs or table.ksize >= 32:
         return None
+    if timing.enabled():
+        lens = np.fromiter(map(len, seqs), np.int64, len(seqs))
+        timing.count("kmer.queries_device",
+                     int(np.maximum(lens - table.ksize + 1, 0).sum()))
     tab, hi, lo, ct = table.device_table()
     codes, starts = score_inputs(seqs)
     dev = hi.device

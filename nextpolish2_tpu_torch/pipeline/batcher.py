@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..parallel.mesh import axis_size, get_active_mesh
+from ..utils.timing import carry
 
 # one dispatched batch is LANE_B windows (the same chunk shapes as the
 # per-contig path, engine.py); a tail flush of <= LANE_SMALL lanes reuses the
@@ -123,8 +124,9 @@ class DeviceBatcher:
         self.stats = BatchStats()
         self._agg_pool = ThreadPoolExecutor(max_workers=agg_threads,
                                             thread_name_prefix="np2agg")
-        self._worker = threading.Thread(target=self._run, name="np2batcher",
-                                        daemon=True)
+        # the worker's spans take the span that made the batcher as parent
+        self._worker = threading.Thread(target=carry(self._run),
+                                        name="np2batcher", daemon=True)
         self._error: Optional[BaseException] = None
         self._worker.start()
 
@@ -141,9 +143,11 @@ class DeviceBatcher:
         overflow)."""
         if not isinstance(tier, tuple):
             tier = (int(tier), None)
-        req = _Request(n=n, aggregate=aggregate, lead=np.asarray(lead),
+        # the closures run on the aggregation pool under the caller's span
+        req = _Request(n=n, aggregate=carry(aggregate), lead=np.asarray(lead),
                        seed=np.asarray(seed), last=np.asarray(last),
-                       aggregate_csr=aggregate_csr)
+                       aggregate_csr=(None if aggregate_csr is None
+                                      else carry(aggregate_csr)))
         with self._wake:
             if self._error is not None:
                 raise RuntimeError("batcher worker died") from self._error

@@ -252,166 +252,173 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
 
         dev = resolve_device(device)
         variants = resolve_dp_variants(dp_variant)
-    t_start = time.time()
-    from ..utils.timing import stage
+    from ..utils.timing import carry, span, stage
 
-    with stage("load_yak_tables"):
-        tables = [load_yak(p) for p in yak_paths]
-    tables.sort(key=lambda t: t.ksize)  # option.rs:238
-    if engine == "cuda" and dev.type == "cuda":
-        # large lookup and scoring batches go to the device-resident table
-        # (io/yak.py, models/oracle_lq.py routing thresholds)
-        for t in tables:
-            t.use_device = True
-            t.device = dev
+    with span("pass"):
+        t_start = time.time()
+        with stage("load_yak_tables"):
+            tables = [load_yak(p) for p in yak_paths]
+        tables.sort(key=lambda t: t.ksize)  # option.rs:238
+        if engine == "cuda" and dev.type == "cuda":
+            # large lookup and scoring batches go to the device-resident table
+            # (io/yak.py, models/oracle_lq.py routing thresholds)
+            for t in tables:
+                t.use_device = True
+                t.device = dev
 
-    from ..io.bam import fill_secondary_seq, retrieve_secondary_seqs
-    from ..io.native import available as native_available
+        from ..io.bam import fill_secondary_seq, retrieve_secondary_seqs
+        from ..io.native import available as native_available
 
-    # the native fast path handles -S itself: np2_extract_begin3 prefetches
-    # primary SEQs once per BAM and substitutes them into secondary records
-    # (np2native.cc prefetch_secondary; mirrors secondary.rs:82-148)
-    use_native = native_available()
-    reader = BamReader(bam_path)
-    ref_names = [n for n, _ in reader.references]
-    name_to_tid = {n: i for i, n in enumerate(ref_names)}
-    contig_records: Dict[int, list] = {}
-    # the oracle engine reads records, never the native ingest: it needs
-    # them whether or not the native library loaded (the JAX package's
-    # orchestrator loads them only without it, and its oracle engine then
-    # sees no read and returns the assembly unchanged)
-    if not use_native or engine != "cuda":
-        sec_seqs = retrieve_secondary_seqs(bam_path) if cfg.use_secondary else {}
-        for tid, recs in reader.by_contig():
-            if cfg.use_secondary:
-                recs = [fill_secondary_seq(r, sec_seqs) if r.is_secondary else r
-                        for r in recs]
-            contig_records[tid] = recs
+        # the native fast path handles -S itself: np2_extract_begin3 prefetches
+        # primary SEQs once per BAM and substitutes them into secondary records
+        # (np2native.cc prefetch_secondary; mirrors secondary.rs:82-148)
+        use_native = native_available()
+        reader = BamReader(bam_path)
+        ref_names = [n for n, _ in reader.references]
+        name_to_tid = {n: i for i, n in enumerate(ref_names)}
+        contig_records: Dict[int, list] = {}
+        # the oracle engine reads records, never the native ingest: it needs
+        # them whether or not the native library loaded (the JAX package's
+        # orchestrator loads them only without it, and its oracle engine then
+        # sees no read and returns the assembly unchanged)
+        if not use_native or engine != "cuda":
+            sec_seqs = (retrieve_secondary_seqs(bam_path)
+                        if cfg.use_secondary else {})
+            for tid, recs in reader.by_contig():
+                if cfg.use_secondary:
+                    recs = [fill_secondary_seq(r, sec_seqs)
+                            if r.is_secondary else r for r in recs]
+                contig_records[tid] = recs
 
-    results: List[PolishedContig] = []
-    stats = stats if stats is not None else PolishStats()
+        results: List[PolishedContig] = []
+        stats = stats if stats is not None else PolishStats()
 
-    def run_one(name: str, seq: bytes, pre=None):
-        t_contig = time.time()
-        if len(seq) >= (1 << 32):
-            raise ValueError(f"{name} is too long!")  # main.rs:1707-1711
-        if len(seq) < cfg.min_ctg_len:
-            cb = passthrough_consensus(seq)
-            passthrough = True
-        else:
-            tid = name_to_tid.get(name)
-            recs = contig_records.get(tid, []) if tid is not None else []
-            native = (bam_path, tid) if (use_native and tid is not None) else None
-            if engine == "cuda":
-                from .engine import polish_contig_cuda
-                cb = polish_contig_cuda(seq, recs, tables, cfg, device=dev,
-                                        native=native, pre_ingest=pre,
-                                        dp_variant=variants)
+        def run_one(name: str, seq: bytes, pre=None):
+            with span("contig", contig=name):
+                t_contig = time.time()
+                if len(seq) >= (1 << 32):
+                    # main.rs:1707-1711
+                    raise ValueError(f"{name} is too long!")
+                if len(seq) < cfg.min_ctg_len:
+                    cb = passthrough_consensus(seq)
+                    passthrough = True
+                else:
+                    tid = name_to_tid.get(name)
+                    recs = (contig_records.get(tid, []) if tid is not None
+                            else [])
+                    native = ((bam_path, tid)
+                              if (use_native and tid is not None) else None)
+                    if engine == "cuda":
+                        from .engine import polish_contig_cuda
+                        cb = polish_contig_cuda(
+                            seq, recs, tables, cfg, device=dev, native=native,
+                            pre_ingest=pre, dp_variant=variants)
+                    else:
+                        cb = polish_contig(seq, recs, tables, cfg)
+                    passthrough = False
+                return cb, passthrough, time.time() - t_contig
+
+        todo = []
+        for contig_index, (name, seq) in enumerate(read_fastx(fa_path)):
+            if host_shard is not None and not host_shard.owns(contig_index):
+                continue  # another process polishes this contig
+            if skip_contigs and name in skip_contigs:
+                continue
+            todo.append((name, seq))
+
+        def finish(name, seq, cb, passthrough, dt):
+            stats.contigs += 1
+            stats.in_bases += len(seq)
+            stats.passthrough += int(passthrough)
+            stats.polished += int(not passthrough)
+            out_seq = consensus_to_bytes(cb)
+            stats.out_bases += len(out_seq)
+            pc = PolishedContig(name=name, seq=out_seq,
+                                start=int(cb.pos[0]) if len(cb) else 0,
+                                end=int(cb.pos[-1]) if len(cb) else 0)
+            if out is not None:
+                _emit(out, pc, cb, cfg)
             else:
-                cb = polish_contig(seq, recs, tables, cfg)
-            passthrough = False
-        return cb, passthrough, time.time() - t_contig
+                results.append(pc)
+            if verbose:
+                print(f"[np2] {name}: {len(seq)} -> {len(out_seq)} bases in "
+                      f"{dt:.1f}s", file=sys.stderr)
 
-    todo = []
-    for contig_index, (name, seq) in enumerate(read_fastx(fa_path)):
-        if host_shard is not None and not host_shard.owns(contig_index):
-            continue  # another process polishes this contig
-        if skip_contigs and name in skip_contigs:
-            continue
-        todo.append((name, seq))
+        batcher = None
+        if engine == "cuda" and cfg.threads > 1 and len(todo) > 1:
+            # cross-contig device batching: concurrent contig threads share
+            # full device batches instead of each padding its own chunks
+            from .batcher import DeviceBatcher, set_active_batcher
 
-    def finish(name, seq, cb, passthrough, dt):
-        stats.contigs += 1
-        stats.in_bases += len(seq)
-        stats.passthrough += int(passthrough)
-        stats.polished += int(not passthrough)
-        out_seq = consensus_to_bytes(cb)
-        stats.out_bases += len(out_seq)
-        pc = PolishedContig(name=name, seq=out_seq,
-                            start=int(cb.pos[0]) if len(cb) else 0,
-                            end=int(cb.pos[-1]) if len(cb) else 0)
-        if out is not None:
-            _emit(out, pc, cb, cfg)
-        else:
-            results.append(pc)
-        if verbose:
-            print(f"[np2] {name}: {len(seq)} -> {len(out_seq)} bases in "
-                  f"{dt:.1f}s", file=sys.stderr)
+            batcher = DeviceBatcher(dev, variants)
+            set_active_batcher(batcher)
+        try:
+            if cfg.threads > 1 and len(todo) > 1:
+                # contig-level thread pool (the reference's worker parallelism;
+                # windows within a contig are already device-parallel). Output
+                # stays input-order.
+                from concurrent.futures import ThreadPoolExecutor
 
-    batcher = None
-    if engine == "cuda" and cfg.threads > 1 and len(todo) > 1:
-        # cross-contig device batching: concurrent contig threads share full
-        # device batches instead of each padding its own chunks
-        from .batcher import DeviceBatcher, set_active_batcher
+                with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                    futs = [(name, seq, ex.submit(carry(run_one), name, seq))
+                            for name, seq in todo]
+                    for name, seq, fut in futs:
+                        cb, passthrough, dt = fut.result()
+                        finish(name, seq, cb, passthrough, dt)
+            elif engine == "cuda" and use_native and len(todo) > 1:
+                # one-contig lookahead at -t 1 (reference input-thread
+                # prefetch, main.rs:1703-1715): the NEXT contig's native BAM
+                # ingest runs on a helper thread while the current contig
+                # occupies the device. Bounded memory: at most ONE extra
+                # contig's stream is resident.
+                from concurrent.futures import ThreadPoolExecutor
 
-        batcher = DeviceBatcher(dev, variants)
-        set_active_batcher(batcher)
-    try:
-        if cfg.threads > 1 and len(todo) > 1:
-            # contig-level thread pool (the reference's worker parallelism;
-            # windows within a contig are already device-parallel). Output
-            # stays input-order.
-            from concurrent.futures import ThreadPoolExecutor
+                from ..models.oracle import build_alignseqs_native_flat
 
-            with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
-                futs = [(name, seq, ex.submit(run_one, name, seq))
-                        for name, seq in todo]
-                for name, seq, fut in futs:
-                    cb, passthrough, dt = fut.result()
+                def _pre_ingest(name: str, seq: bytes):
+                    tid = name_to_tid.get(name)
+                    if tid is None or len(seq) < cfg.min_ctg_len:
+                        return None
+                    from .segmented import use_segmented
+
+                    if use_segmented(len(seq)):
+                        return None  # segmented engine streams its own ingest
+                    return build_alignseqs_native_flat(bam_path, tid, seq, cfg)
+
+                with ThreadPoolExecutor(max_workers=1) as pre_pool:
+                    pre_futs: Dict[int, object] = {}
+                    for i, (name, seq) in enumerate(todo):
+                        if i + 1 < len(todo):
+                            pre_futs[i + 1] = pre_pool.submit(
+                                carry(_pre_ingest, contig=todo[i + 1][0]),
+                                *todo[i + 1])
+                        cb, passthrough, dt = run_one(
+                            name, seq, pre=pre_futs.pop(i, None))
+                        finish(name, seq, cb, passthrough, dt)
+            else:
+                for name, seq in todo:
+                    cb, passthrough, dt = run_one(name, seq)
                     finish(name, seq, cb, passthrough, dt)
-        elif engine == "cuda" and use_native and len(todo) > 1:
-            # one-contig lookahead at -t 1 (reference input-thread prefetch,
-            # main.rs:1703-1715): the NEXT contig's native BAM ingest runs
-            # on a helper thread while the current contig occupies the
-            # device. Bounded memory: at most ONE extra contig's stream is
-            # resident.
-            from concurrent.futures import ThreadPoolExecutor
-
-            from ..models.oracle import build_alignseqs_native_flat
-
-            def _pre_ingest(name: str, seq: bytes):
-                tid = name_to_tid.get(name)
-                if tid is None or len(seq) < cfg.min_ctg_len:
-                    return None
-                from .segmented import use_segmented
-
-                if use_segmented(len(seq)):
-                    return None  # segmented engine streams its own ingest
-                return build_alignseqs_native_flat(bam_path, tid, seq, cfg)
-
-            with ThreadPoolExecutor(max_workers=1) as pre_pool:
-                pre_futs: Dict[int, object] = {}
-                for i, (name, seq) in enumerate(todo):
-                    if i + 1 < len(todo):
-                        pre_futs[i + 1] = pre_pool.submit(
-                            _pre_ingest, *todo[i + 1])
-                    cb, passthrough, dt = run_one(
-                        name, seq, pre=pre_futs.pop(i, None))
-                    finish(name, seq, cb, passthrough, dt)
-        else:
-            for name, seq in todo:
-                cb, passthrough, dt = run_one(name, seq)
-                finish(name, seq, cb, passthrough, dt)
-    finally:
-        if batcher is not None:
-            set_active_batcher(None)
-            batcher.shutdown()
-            stats.batches = batcher.stats.batches
-            stats.batch_fill = batcher.stats.fill
-            stats.csr_batches = batcher.stats.csr_batches
-            stats.dense_reasons = dict(batcher.stats.dense_reasons)
-            # warn about any dense fallback EXCEPT pure no-CSR-closure runs
-            # (a request without a CSR aggregation closure is expected to go
-            # dense; a bail in other batches is not, and must stay visible
-            # even when both kinds occur in one run)
-            unexpected = set(stats.dense_reasons) - {"no_csr_closure"}
-            if stats.csr_batches < stats.batches and unexpected:
-                print("[np2] warning: %d/%d device batches fell back to "
-                      "dense host aggregation (%s)" % (
-                          stats.batches - stats.csr_batches, stats.batches,
-                          stats.dense_reasons), file=sys.stderr)
-    stats.seconds = time.time() - t_start
-    return results
+        finally:
+            if batcher is not None:
+                set_active_batcher(None)
+                batcher.shutdown()
+                stats.batches = batcher.stats.batches
+                stats.batch_fill = batcher.stats.fill
+                stats.csr_batches = batcher.stats.csr_batches
+                stats.dense_reasons = dict(batcher.stats.dense_reasons)
+                # warn about any dense fallback EXCEPT pure no-CSR-closure
+                # runs (a request without a CSR aggregation closure is
+                # expected to go dense; a bail in other batches is not, and
+                # must stay visible even when both kinds occur in one run)
+                unexpected = set(stats.dense_reasons) - {"no_csr_closure"}
+                if stats.csr_batches < stats.batches and unexpected:
+                    print("[np2] warning: %d/%d device batches fell back to "
+                          "dense host aggregation (%s)" % (
+                              stats.batches - stats.csr_batches, stats.batches,
+                              stats.dense_reasons), file=sys.stderr)
+        stats.seconds = time.time() - t_start
+        return results
 
 
 def _emit(out, pc: PolishedContig, cb: Consensus,

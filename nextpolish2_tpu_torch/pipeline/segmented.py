@@ -61,7 +61,7 @@ from ..models.oracle_lq import (
 )
 from ..models.oracle_msa import Consensus, kmer_stream, lq_from_qv_stream
 from ..utils.seqcodes import ASCII2CODE
-from ..utils.timing import stage
+from ..utils.timing import carry, stage
 from .windows import SegmentCutError, WindowOverflow
 
 
@@ -232,13 +232,13 @@ def _pass_a(tseq_len: int, codes: np.ndarray, cfg: PolishConfig,
                         k_s.base if k_s.base is not None else k_s)
                     return t_s, k_s
 
-                cache["sorted_future"] = sort_pool.submit(sort_task)
+                cache["sorted_future"] = sort_pool.submit(carry(sort_task))
                 return base, relmax, alignseqs, cache
 
             cut = 0
             first = True
             nominal_hi, last, t_hi = seg_geom(0)
-            fut = pool.submit(ingest, 0, t_hi, last)
+            fut = pool.submit(carry(ingest), 0, t_hi, last)
             while True:
                 look: dict = {}
                 while True:
@@ -255,7 +255,8 @@ def _pass_a(tseq_len: int, codes: np.ndarray, cfg: PolishConfig,
                         nxt = cut_local + base
                         g = seg_geom(nxt)
                         look["next"] = (nxt, g)
-                        look["fut"] = pool.submit(ingest, nxt, g[2], g[1])
+                        look["fut"] = pool.submit(
+                            carry(ingest), nxt, g[2], g[1])
 
                     try:
                         pos, b, qv, low = device_consensus_stream(
@@ -280,7 +281,7 @@ def _pass_a(tseq_len: int, codes: np.ndarray, cfg: PolishConfig,
                         # extension re-scan: same t_lo, larger t_hi (the
                         # scanner supports this); no lookahead is pending
                         # because on_plan only fires after a plan succeeds
-                        fut = pool.submit(ingest, cut, t_hi, last)
+                        fut = pool.submit(carry(ingest), cut, t_hi, last)
                 best_sum += info["best_sum"]
                 pieces.append(((pos + base).astype(np.int32),
                                b.astype(np.uint8, copy=False),
@@ -322,13 +323,14 @@ def _pass_b(lqseqs, cuts: Sequence[int], tseq_len: int, codes: np.ndarray,
             # one-segment lookahead: all ranges are known up front (the
             # pass-A cuts), so segment k+1's scan overlaps segment k's
             # extraction; the single worker keeps scanner calls in order
-            fut = pool.submit(scan, cuts[0], cuts[1])
+            fut = pool.submit(carry(scan), cuts[0], cuts[1])
             for k in range(len(cuts) - 1):
                 lo_c, hi_c = cuts[k], cuts[k + 1]
                 idx = np.nonzero((starts >= lo_c) & (starts < hi_c))[0]
                 r = fut.result()
                 if k + 2 < len(cuts):
-                    fut = pool.submit(scan, cuts[k + 1], cuts[k + 2])
+                    fut = pool.submit(
+                        carry(scan), cuts[k + 1], cuts[k + 2])
                 if not len(idx):
                     continue
                 regs = [lqseqs[int(j)] for j in idx]  # descending order kept
