@@ -2260,18 +2260,39 @@ int np2_window_max(const int32_t* colslots, int64_t n_pos,
   return 0;
 }
 
+// First index in [lo, hi) whose tag position is >= x, or hi: a gallop
+// forward from lo, then a binary search within the last step. Positions
+// are non-decreasing, and all of them before lo are < x.
+static inline int64_t tag_lower_bound(const int32_t* tp, int64_t lo,
+                                      int64_t hi, int32_t x) {
+  int64_t prev = lo, step = 1;
+  while (lo < hi && tp[lo] < x) {
+    prev = lo + 1;
+    lo += step;
+    step <<= 1;
+  }
+  if (lo > hi) lo = hi;
+  return std::lower_bound(tp + prev, tp + lo, x) - tp;
+}
+
 // Per-read LQ candidate-allele extraction, pass 1 (the reference's hot loop 3,
-// main.rs:1429-1523; Python spec models/oracle_lq.py:extract_alleles). Walks
-// the alignments IN ORDER with the reference's sticky region cursor, slices
-// each covered region's allele (valid = non-gap bases) and rolls the first
-// ksize valid bases into the canonical pre-hash min(fwd, rev) with the
-// release-Rust wrapped-shift semantics for k >= 32 (shift amounts mod 64).
+// main.rs:1429-1523; Python spec models/oracle_lq.py:_extract_alleles_py).
+// Walks the alignments IN ORDER with the reference's sticky region cursor;
+// within a read, walks its regions in ascending genome order over its tags
+// once: each region's first tag is a forward search from the previous
+// region's, the allele is its valid (non-gap) tags up to the region's end,
+// and the first ksize valid tags from there roll into the canonical
+// pre-hash min(fwd, rev) with the release-Rust wrapped-shift semantics for
+// k >= 32 (shift amounts mod 64). Both stay within the reference's decode
+// limit: one tag past the last tag at or before rend[j] + ksize.
 //
 // mode 0: count pass -> *out_m (entries) and *out_bytes (total allele chars).
 // mode 1: fill pass  -> out_region i32[M] (region index, descending-order
 // array), out_order i32[M] (alignment index), out_soff i64[M+1] exclusive
 // byte offsets (out_soff[0] = 0), out_seq u8 ASCII, out_prehash u64[M],
-// out_has u8[M] (0 -> no k-mer, prehash undefined).
+// out_has u8[M] (0 -> no k-mer, prehash undefined). A region's entries come
+// in alignment order; within one alignment, regions in ascending genome order.
+// Both modes: *out_pairs, the (alignment, region) pairs visited.
 // Inputs: concatenated per-alignment (t_pos i32, q_base u8) with offsets
 // aoff i64[A+1]; per-alignment aln_t_s/aln_t_e + active flags; regions
 // rstart/rend i64[R] in DESCENDING genome order with initial seq counts
@@ -2284,19 +2305,19 @@ int np2_extract_alleles(const int32_t* t_pos, const uint8_t* q_base,
                         const int32_t* nseq0, int64_t R,
                         int64_t ksize, int64_t max_can, int mode,
                         int64_t* out_m, int64_t* out_bytes,
+                        int64_t* out_pairs,
                         int32_t* out_region, int32_t* out_order,
                         int64_t* out_soff, uint8_t* out_seq,
                         uint64_t* out_prehash, uint8_t* out_has) {
+  *out_pairs = 0;
   if (R == 0 || A == 0) { *out_m = 0; *out_bytes = 0; return 0; }
   static const char C2A[8] = {'A', 'C', 'G', 'T', '-', 'N', 'M', '-'};
   const int shift = (int)((2 * (ksize - 1)) & 63);
   const int msh = (int)((2 * ksize) & 63);
   const uint64_t mask = msh ? ((1ULL << msh) - 1) : 0;  // k=32 -> 0 (RFC 560)
   std::vector<int32_t> queued(R, 0);
-  std::vector<int32_t> vpos;
-  std::vector<uint8_t> vq;
   int64_t s = R - 1;
-  int64_t m = 0, bytes_acc = 0;
+  int64_t m = 0, bytes_acc = 0, pairs = 0;
   if (mode == 1) out_soff[0] = 0;
   for (int64_t a = 0; a < A; a++) {
     if (!active[a]) continue;
@@ -2307,49 +2328,51 @@ int np2_extract_alleles(const int32_t* t_pos, const uint8_t* q_base,
     int64_t j = s;
     while (j > 0 && rend[j] <= aln_t_e[a]) j--;
     if (rend[j] > aln_t_e[a]) j++;
+    pairs += s - j + 1;
     const int32_t* tp = t_pos + aoff[a];
     const uint8_t* qb = q_base + aoff[a];
     // decode tags until t_pos > rend[j] + ksize, + one extra (spec: stop+1)
     const int32_t tlim = (int32_t)(rend[j] + ksize);
-    int64_t stop = std::upper_bound(tp, tp + n, tlim) - tp;
-    int64_t limit = stop < n ? stop + 1 : n;
-    vpos.clear(); vq.clear();
-    for (int64_t i = 0; i < limit; i++) {
-      if (qb[i] != 4) { vpos.push_back(tp[i]); vq.push_back(qb[i]); }
-    }
-    const int64_t nv = (int64_t)vpos.size();
-    for (int64_t r = j; r <= s; r++) {
+    const int64_t stop = std::upper_bound(tp, tp + n, tlim) - tp;
+    const int64_t limit = stop < n ? stop + 1 : n;
+    int64_t lo = 0;
+    int32_t prev_start = INT32_MIN;
+    for (int64_t r = s; r >= j; r--) {
       if ((int64_t)nseq0[r] + queued[r] >= max_can) continue;
-      int64_t i0 = std::lower_bound(vpos.begin(), vpos.end(),
-                                    (int32_t)rstart[r]) - vpos.begin();
-      int64_t i1 = std::upper_bound(vpos.begin(), vpos.end(),
-                                    (int32_t)rend[r]) - vpos.begin();
-      if (i1 <= i0) continue;  // empty allele -> the reference appends nothing
+      const int32_t rs = (int32_t)rstart[r], re = (int32_t)rend[r];
+      if (rs < prev_start) lo = 0;  // regions out of order: search afresh
+      prev_start = rs;
+      lo = tag_lower_bound(tp, lo, limit, rs);
+      int64_t i1 = lo, nb = 0;
+      uint8_t* dst = mode == 1 ? out_seq + out_soff[m] : nullptr;
+      for (; i1 < limit && tp[i1] <= re; i1++) {
+        if (qb[i1] == 4) continue;
+        if (dst) dst[nb] = (uint8_t)C2A[qb[i1] & 7];
+        nb++;
+      }
+      if (nb == 0) continue;  // empty allele -> the reference appends nothing
       queued[r]++;
-      if (mode == 0) { m++; bytes_acc += i1 - i0; continue; }
+      if (mode == 0) { m++; bytes_acc += nb; continue; }
       out_region[m] = (int32_t)r;
       out_order[m] = (int32_t)a;
-      uint8_t* dst = out_seq + out_soff[m];
-      for (int64_t i = i0; i < i1; i++) dst[i - i0] = (uint8_t)C2A[vq[i] & 7];
-      out_soff[m + 1] = out_soff[m] + (i1 - i0);
-      if (i0 + ksize <= nv) {
-        uint64_t kf = 0, kr = 0;
-        for (int64_t i = i0; i < i0 + ksize; i++) {
-          const uint64_t b = vq[i];
-          kf = ((kf << 2) | b) & mask;
-          kr = (kr >> 2) | ((3ULL ^ b) << shift);
-        }
-        out_prehash[m] = kf < kr ? kf : kr;
-        out_has[m] = 1;
-      } else {
-        out_prehash[m] = 0;
-        out_has[m] = 0;
+      out_soff[m + 1] = out_soff[m] + nb;
+      uint64_t kf = 0, kr = 0;
+      int64_t got = 0;
+      for (int64_t i = lo; i < limit && got < ksize; i++) {
+        const uint64_t b = qb[i];
+        if (b == 4) continue;
+        kf = ((kf << 2) | b) & mask;
+        kr = (kr >> 2) | ((3ULL ^ b) << shift);
+        got++;
       }
+      out_has[m] = got == ksize;
+      out_prehash[m] = got == ksize ? (kf < kr ? kf : kr) : 0;
       m++;
     }
   }
   *out_m = m;
   *out_bytes = bytes_acc;
+  *out_pairs = pairs;
   return 0;
 }
 

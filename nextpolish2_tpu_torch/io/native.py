@@ -707,9 +707,11 @@ def extract_alleles_native(t_pos_all: np.ndarray, q_base_all: np.ndarray,
                            rstart: np.ndarray, rend: np.ndarray,
                            nseq0: np.ndarray, ksize: int, max_can: int):
     """Native per-read LQ allele extraction pass 1 (np2_extract_alleles;
-    spec models/oracle_lq.py:extract_alleles). Count-then-fill. Returns
-    (region i32[M], order i32[M], soff i64[M+1], seq u8[S] ASCII,
-    prehash u64[M], has u8[M]) or None when the library is unavailable."""
+    spec models/oracle_lq.py:_extract_alleles_py). Count-then-fill, each
+    one walk over every active read's tags. Returns (region i32[M],
+    order i32[M], soff i64[M+1], seq u8[S] ASCII, prehash u64[M], has u8[M],
+    pairs), pairs the (read, region) pairs visited, or None when the
+    library is unavailable."""
     lib = load()
     if lib is None:
         return None
@@ -726,6 +728,7 @@ def extract_alleles_native(t_pos_all: np.ndarray, q_base_all: np.ndarray,
     R = len(rstart)
     m = ctypes.c_int64(0)
     nbytes = ctypes.c_int64(0)
+    pairs = ctypes.c_int64(0)
     null8 = None
 
     def _call(mode, region, order, soff, seq, prehash, has):
@@ -738,7 +741,7 @@ def extract_alleles_native(t_pos_all: np.ndarray, q_base_all: np.ndarray,
             _p(nseq0, ctypes.c_int32), ctypes.c_int64(R),
             ctypes.c_int64(ksize), ctypes.c_int64(max_can),
             ctypes.c_int(mode), ctypes.byref(m), ctypes.byref(nbytes),
-            region, order, soff, seq, prehash, has)
+            ctypes.byref(pairs), region, order, soff, seq, prehash, has)
 
     rc = _call(0, null8, null8, null8, null8, null8, null8)
     if rc != 0:
@@ -755,8 +758,9 @@ def extract_alleles_native(t_pos_all: np.ndarray, q_base_all: np.ndarray,
                _p(prehash, ctypes.c_uint64), _p(has, ctypes.c_uint8))
     if rc != 0:
         raise RuntimeError(f"np2_extract_alleles fill failed rc={rc}")
-    assert int(m.value) == M
-    return region[:M], order[:M], soff, seq[:S], prehash[:M], has[:M]
+    assert int(m.value) == M and int(soff[M]) == S
+    return (region[:M], order[:M], soff, seq[:S], prehash[:M], has[:M],
+            int(pairs.value))
 
 
 def plan_windows_native(anchors: np.ndarray, n_pos: int, target: int):

@@ -61,9 +61,10 @@ def extract_alleles(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
     lqseqs are in DESCENDING genome order. alignseqs[0] must be the reference
     pseudo-alignment (order 0). Appends LqSeq entries in read order.
 
-    Dispatches to the native single-pass implementation (np2_extract_alleles)
-    when available; _extract_alleles_py below is the executable spec and the
-    fallback (differential-tested in tests/test_lq_units.py). `cache` (any
+    Dispatches to the native implementation (np2_extract_alleles: one walk
+    over each read's tags) when available; _extract_alleles_py below is the
+    executable spec and the fallback (differential-tested in
+    tests/test_torch_lq_front.py). `cache` (any
     dict, e.g. the engine's per-contig stream_cache) persists the concatenated
     tag arrays across phasing iterations.
 
@@ -113,7 +114,8 @@ def extract_alleles(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
                                          aln_t_e, active, rstart, rend, nseq0,
                                          table.ksize, max_can)
         if res is not None:
-            region, order, soff, seq, prehash, has = res
+            region, order, soff, seq, prehash, has, pairs = res
+            timing.count("lq.read_regions", pairs)
             timing.count("lq.alleles", len(region))
             if order_map is not None:
                 order = order_map[order].astype(np.int32, copy=False)
@@ -168,6 +170,7 @@ def _extract_alleles_py(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
     pend: List[tuple] = []   # (lqseq, order, chars, kb_row index or -1)
     kb_rows: List[np.ndarray] = []
     n_queued: Dict[int, int] = {}  # id(lqseq) -> queued append count
+    pairs = 0  # (read, region) pairs visited
     for idx, a in enumerate(alignseqs):
         if a.dropped or len(a) == 0:
             continue
@@ -193,6 +196,7 @@ def _extract_alleles_py(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
         vq = q_base[vi]
 
         regs = lqseqs[j : s + 1]
+        pairs += len(regs)
         starts = np.fromiter((r.start for r in regs), np.int64, len(regs))
         ends = np.fromiter((r.end for r in regs), np.int64, len(regs))
         i0s = np.searchsorted(vpos, starts, side="left")
@@ -227,6 +231,7 @@ def _extract_alleles_py(alignseqs: List[AlignTags], lqseqs: List[LqRegion],
             k_fwd = ((k_fwd << two) | qb) & mask
             k_rev = (k_rev >> two) | ((three ^ qb) << shift)
         hashes = table.to_hash(np.minimum(k_fwd, k_rev)).astype(np.uint64)
+    timing.count("lq.read_regions", pairs)
     timing.count("lq.alleles", len(pend))
     for lqseq, idx, chars, row in pend:
         lqseq.seqs.append(LqSeq(

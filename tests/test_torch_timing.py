@@ -8,8 +8,9 @@
     one in, gets the same totals, and the intervals it rebuilds match the
     recorder's spans;
   - on the bundled slice, lq.regions counts the regions the engine made,
-    and the two k-mer route counters together count every k-mer queried,
-    whichever route resolved it;
+    lq.events and lq.read_regions count the LQ front end's work, and the
+    two k-mer route counters together count every k-mer queried,
+    whichever route resolved it; off, a polish counts nothing;
   - profiler_trace writes a Chrome trace that names the pass and stages.
 """
 
@@ -219,7 +220,9 @@ def test_slice_counts_regions_and_every_kmer_once(route, monkeypatch):
     device routes (device="cpu", thresholds at 1), or scoring on the
     device and lookups on the host. The regions the engine made and the
     k-mers asked of the tables and of the scorer, counted by wrappers,
-    equal the recorder's counters; and the output is the golden's."""
+    equal the recorder's counters; the LQ front end's two work counters
+    read above 0; and the output is the golden's. Off (host route), a
+    polish leaves the recorder empty."""
     from nextpolish2_tpu_torch.config import PolishConfig
     from nextpolish2_tpu_torch.io import yak
     from nextpolish2_tpu_torch.io.fastx import read_fastx
@@ -258,6 +261,12 @@ def test_slice_counts_regions_and_every_kmer_once(route, monkeypatch):
     monkeypatch.setattr(engine, "lq_from_qv_stream", lq)
     monkeypatch.setattr(yak.KmerTable, "get", get)
     monkeypatch.setattr(kmer_score, "device_min_kscores", score)
+    if route == "host":  # off, a polish leaves the counters empty
+        orchestrator.polish(f"{BASE}/slice.fa", f"{BASE}/slice.bam", YAKS,
+                            PolishConfig(min_ctg_len=1000), device="cpu",
+                            out=io.BytesIO())
+        assert timing.counters() == {} and timing.spans() == []
+        asked.update(regions=0, kmers=0)
     sink = io.BytesIO()
     timing.enable(True)
     orchestrator.polish(f"{BASE}/slice.fa", f"{BASE}/slice.bam", YAKS,
@@ -274,6 +283,10 @@ def test_slice_counts_regions_and_every_kmer_once(route, monkeypatch):
                                    "device": (True, False),
                                    "mixed": (True, True)}[route]
     assert c["lq.alleles"] > c["lq.regions"]
+    # the detector took more events than it made regions; extraction
+    # visited every (read, region) pair it cut an allele for, and more
+    assert c["lq.events"] > c["lq.regions"]
+    assert c["lq.read_regions"] >= c["lq.alleles"]
     p, = _by_name("pass")
     contig, = _by_name("contig")
     assert contig.contig == "slice" and contig.parent == timing.spans() \
