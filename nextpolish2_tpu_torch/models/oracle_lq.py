@@ -462,6 +462,7 @@ def mark_hete_lqseqs(lqseqs: List[LqRegion], max_can: int = 60) -> None:
     """Heterozygous-interval marking; zeroes minor-allele kscores (main.rs:916-946)."""
     stats = [0] * max_can
     order_stat: Dict[int, int] = {}
+    het = 0
     for lqseq in lqseqs:
         max1_c, max1_p, max2_c, max2_p = fill_order_stat(lqseq, stats, order_stat)
         min_c = get_min_count(len(lqseq.seqs))
@@ -477,6 +478,8 @@ def mark_hete_lqseqs(lqseqs: List[LqRegion], max_can: int = 60) -> None:
             for p, seq in enumerate(lqseq.seqs):
                 if seq.kscore > 0 and stats[p] < min_c:
                     seq.kscore = 0
+            het += 1
+    timing.count("lq.het_regions", het)
 
 
 def phase_reads_by_lqseqs(lqseqs: List[LqRegion], asref: bool,
@@ -565,6 +568,7 @@ def _phase_edges_vec(lqseqs: List[LqRegion], asref: bool,
     # invalid ids themselves, and empty rows become singleton Louvain nodes
     # that participate in decluster renumbering.
     data = new_data()
+    edges = 0
     for a, b, v in zip(u1.tolist(), u2.tolist(), val.tolist()):
         a_ok = a not in invalid_ids
         b_ok = b not in invalid_ids
@@ -572,10 +576,12 @@ def _phase_edges_vec(lqseqs: List[LqRegion], asref: bool,
             row = data.setdefault(a, {})
             if b_ok:
                 row[b] = v
+                edges += 1
         if b_ok:
             row = data.setdefault(b, {})
             if a_ok:
                 row[a] = v
+    timing.count("phasing.edges", edges)
 
     ref_weight = None
     if asref and len(rr2):

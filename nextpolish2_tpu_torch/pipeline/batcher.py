@@ -25,6 +25,11 @@ idle-flush grace makes batch COMPOSITION depend on timing, never the output.
 
 A 2-stage software pipeline (aggregate batch i+1 while the device runs batch
 i) also overlaps host prep with device time even for a single contig.
+
+With the recorder on (utils/timing.py), the worker's packing and launch of
+each batch are the stages batch_aggregate and batch_dispatch, and the
+counters batcher.batches, batcher.lanes_dispatched and batcher.lanes_real
+count what BatchStats counts.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..parallel.mesh import axis_size, get_active_mesh
-from ..utils.timing import carry
+from ..utils.timing import carry, count, stage
 
 # one dispatched batch is LANE_B windows (the same chunk shapes as the
 # per-contig path, engine.py); a tail flush of <= LANE_SMALL lanes reuses the
@@ -367,8 +372,10 @@ class DeviceBatcher:
                     continue
                 tier, take = got
                 try:
-                    batch = self._aggregate(tier, take)
-                    dev = self._dispatch(tier, batch)
+                    with stage("batch_aggregate"):
+                        batch = self._aggregate(tier, take)
+                    with stage("batch_dispatch"):
+                        dev = self._dispatch(tier, batch)
                 except BaseException as e:
                     for req, _, _ in take:  # fail just this batch's owners
                         if not req.future.done():
@@ -377,6 +384,9 @@ class DeviceBatcher:
                 self.stats.batches += 1
                 self.stats.lanes_dispatched += len(batch[2])  # padded B
                 self.stats.lanes_real += batch[6]
+                count("batcher.batches")
+                count("batcher.lanes_dispatched", len(batch[2]))
+                count("batcher.lanes_real", batch[6])
                 if batch[0] == "csr":
                     self.stats.csr_batches += 1
                 if inflight is not None:
@@ -452,7 +462,6 @@ class DeviceBatcher:
 
     def _device_get(self, dev, last_col) -> tuple:
         from ..ops.consensus import decode_backtrack_words
-        from ..utils.timing import stage
         from .engine import ChunkRunner
 
         with stage("device_dp_backtrack"):

@@ -7,11 +7,13 @@ sequentially and grouped per contig, each contig runs through the CUDA engine
 written in INPUT ORDER. At -t 1 contigs run one after another with a
 one-contig ingest lookahead; at -t N a pool of N contig threads shares one
 cross-contig DeviceBatcher (pipeline/batcher.py), whose worker thread owns
-the device.
+the device. After a pass the C heap's free pages go back to the OS
+(release_free_heap), so the next pass starts from the same resident size.
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import time
 from dataclasses import dataclass, field
@@ -219,6 +221,20 @@ def trim_partial_output(out_path: str, out_pos: bool = False) -> None:
             f.truncate(good)
 
 
+def release_free_heap() -> bool:
+    """Hand the pages of the C heap's free chunks back to the OS (glibc's
+    malloc_trim(0)). A pass frees its arrays, but glibc keeps freed chunks
+    resident in its arenas, one arena per thread that allocated; at -t N
+    each pass left more resident than the one before. False where the C
+    library has no malloc_trim."""
+    try:
+        trim = ctypes.CDLL(None).malloc_trim
+    except (AttributeError, OSError):
+        return False
+    trim(0)
+    return True
+
+
 def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
            cfg: Optional[PolishConfig] = None, engine: str = "cuda",
            out=None, stats: Optional[PolishStats] = None,
@@ -417,6 +433,8 @@ def polish(fa_path: str, bam_path: str, yak_paths: Sequence[str],
                           "dense host aggregation (%s)" % (
                               stats.batches - stats.csr_batches, stats.batches,
                               stats.dense_reasons), file=sys.stderr)
+        with stage("release_heap"):
+            release_free_heap()
         stats.seconds = time.time() - t_start
         return results
 

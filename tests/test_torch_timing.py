@@ -291,9 +291,11 @@ def test_slice_counts_regions_and_every_kmer_once(route, monkeypatch):
     contig, = _by_name("contig")
     assert contig.contig == "slice" and contig.parent == timing.spans() \
         .index(p)
-    # every span but the pass and its table load works for the contig
+    # every span but the pass, its table load and its heap release works
+    # for the contig
     assert {s.contig for s in timing.spans()
-            if s.name not in ("pass", "load_yak_tables")} == {"slice"}
+            if s.name not in ("pass", "load_yak_tables", "release_heap")} \
+        == {"slice"}
 
 
 def test_profiler_trace_names_the_pass_and_a_stage(tmp_path):
