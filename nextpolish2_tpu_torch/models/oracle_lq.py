@@ -458,8 +458,37 @@ def no_dupseq_lqseq(lqseq: LqRegion) -> bool:
     return True
 
 
+def _native_seed_pass(name: str):
+    """np2obj's routine `name` (io/_native/np2obj.c), or None without it."""
+    from ..io.native import load_obj
+
+    obj = load_obj()
+    return getattr(obj, name, None) if obj is not None else None
+
+
 def mark_hete_lqseqs(lqseqs: List[LqRegion], max_can: int = 60) -> None:
-    """Heterozygous-interval marking; zeroes minor-allele kscores (main.rs:916-946)."""
+    """Heterozygous-interval marking; zeroes minor-allele kscores (main.rs:916-946).
+
+    Dispatches to the native loop over every region (np2obj.mark_hete,
+    which also decides is_valid_snp) when available; _mark_hete_lqseqs_py
+    below is the executable spec and the fallback, taken on TypeError
+    (dataclass LqSeqs), as retrieve_kmer_count falls back from
+    collect_score_jobs. Differential-tested in tests/test_torch_seed_pass.py."""
+    native = _native_seed_pass("mark_hete")
+    if native is not None:
+        try:
+            het = native(lqseqs, max_can)
+        except TypeError:
+            pass
+        else:
+            timing.count("lq.het_regions", het)
+            timing.count("lq.seed_native", len(lqseqs))
+            return
+    _mark_hete_lqseqs_py(lqseqs, max_can)
+
+
+def _mark_hete_lqseqs_py(lqseqs: List[LqRegion], max_can: int = 60) -> None:
+    """Pure-Python spec for mark_hete_lqseqs (main.rs:916-946)."""
     stats = [0] * max_can
     order_stat: Dict[int, int] = {}
     het = 0
@@ -646,7 +675,28 @@ def _phase_edges_scalar(lqseqs: List[LqRegion], asref: bool,
 def fill_seed_lqseqs(lqseqs: List[LqRegion], max_indel_len: int,
                      max_can: int = 60) -> None:
     """Pick dominant-allele seeds; prune candidates; set SUCC/RECH
-    (main.rs:862-914)."""
+    (main.rs:862-914).
+
+    Dispatches to the native loop over every region (np2obj.seed_regions)
+    when available; _fill_seed_lqseqs_py below is the executable spec and
+    the fallback, taken on TypeError (dataclass LqSeqs). Both cut a
+    region's seqs list in place and rebind seqs to a new empty list where
+    the region leaves the recheck (RECH cleared)."""
+    native = _native_seed_pass("seed_regions")
+    if native is not None:
+        try:
+            native(lqseqs, max_indel_len, max_can)
+        except TypeError:
+            pass
+        else:
+            timing.count("lq.seed_native", len(lqseqs))
+            return
+    _fill_seed_lqseqs_py(lqseqs, max_indel_len, max_can)
+
+
+def _fill_seed_lqseqs_py(lqseqs: List[LqRegion], max_indel_len: int,
+                         max_can: int = 60) -> None:
+    """Pure-Python spec for fill_seed_lqseqs (main.rs:862-914)."""
     stats = [0] * max_can
     order_stat: Dict[int, int] = {}
     for lqseq in lqseqs:
@@ -713,7 +763,32 @@ def update_consensus_with_lqseqs(lqseqs: List[LqRegion],
     it replaces counts in lq.regions_changed; the recheck's splices
     (reupdate_consensus_with_lqseqs) come through here too, so a region
     that the recheck splices again with other bytes counts again.
+
+    Dispatches to one native walk (np2obj.splice_labeled, which sizes the
+    output and then fills it) when available and the arrays are int64 and
+    uint8; _update_consensus_with_lqseqs_py below is the executable spec
+    and the fallback, taken on TypeError.
     """
+    pos, base = consensus.pos, consensus.base
+    native = _native_seed_pass("splice_labeled")
+    if native is not None and pos.dtype == np.int64 and base.dtype == np.uint8:
+        try:
+            out_pos, out_base, changed = native(
+                lqseqs, label, np.ascontiguousarray(pos),
+                np.ascontiguousarray(base), timing.enabled())
+        except TypeError:
+            pass
+        else:
+            timing.count("lq.regions_changed", changed)
+            return Consensus(pos=np.frombuffer(out_pos, np.int64),
+                             base=np.frombuffer(out_base, np.uint8))
+    return _update_consensus_with_lqseqs_py(lqseqs, consensus, label)
+
+
+def _update_consensus_with_lqseqs_py(lqseqs: List[LqRegion],
+                                     consensus: Consensus,
+                                     label: int) -> Consensus:
+    """Pure-Python spec for update_consensus_with_lqseqs (main.rs:1027-1058)."""
     pos, base = consensus.pos, consensus.base
     n = len(pos)
     on = timing.enabled()

@@ -7,7 +7,10 @@
   - a dict subclass swapped into _totals, as the benchmark's probe swaps
     one in, gets the same totals, and the intervals it rebuilds match the
     recorder's spans;
+  - lq.seed_native counts the regions np2obj's seed pass took: none
+    where the alleles are the dataclass twin's;
   - on the bundled slice, lq.regions counts the regions the engine made,
+    lq.seed_native every one of them,
     lq.events and lq.read_regions count the LQ front end's work, and the
     two k-mer route counters together count every k-mer queried,
     whichever route resolved it; off, a polish counts nothing;
@@ -210,6 +213,36 @@ def test_splice_counts_the_regions_it_changed(seeds, changed):
     assert out.base.tobytes() == b"AA" + seeds[0] + b"T" + seeds[1] + b"GA"
 
 
+@pytest.mark.parametrize("items", ["native", "dataclass"])
+def test_seed_native_counts_the_regions_the_native_pass_took(items):
+    """lq.seed_native counts the regions that mark_hete_lqseqs and
+    fill_seed_lqseqs hand to np2obj's walk when it loads, and reads 0
+    where the alleles are the dataclass twin's."""
+    from nextpolish2_tpu_torch.io.native import load_obj
+    from nextpolish2_tpu_torch.models.oracle_lq import (
+        L_HETE, LqSeq, fill_seed_lqseqs, mark_hete_lqseqs)
+    from nextpolish2_tpu_torch.models.oracle_msa import LqRegion
+
+    obj = load_obj()
+    assert obj is not None
+    cls = obj.LqSeq if items == "native" else LqSeq
+
+    def regions(n):  # descending genome order; a het site each
+        return [LqRegion(10 * i, 10 * i + 1, seqs=[
+            cls(0, 3, 0, b"AC"), cls(4, 2, 0, b"AG"), cls(9, 2, 0, b"AG")])
+            for i in range(n, 0, -1)]
+
+    het, seed = regions(5), regions(3)
+    timing.enable(True)
+    mark_hete_lqseqs(het, 60)
+    fill_seed_lqseqs(seed, 4, 60)
+    c = timing.counters()
+    assert c.get("lq.seed_native", 0) == (8 if items == "native" else 0)
+    assert c["lq.het_regions"] == 5
+    assert all(r.label & L_HETE for r in het)
+    assert [r.sudoseed for r in seed] == [b"AG"] * 3
+
+
 def _k_mers(seqs, k):
     return sum(len(s) - k + 1 for s in seqs if len(s) >= k)
 
@@ -277,6 +310,9 @@ def test_slice_counts_regions_and_every_kmer_once(route, monkeypatch):
     golden = next(iter(read_fastx(f"{BASE}/slice.golden.fa")))[1]
     assert sink.getvalue().split(b"\n")[1] == golden
     assert asked["regions"] > 0 and c["lq.regions"] == asked["regions"]
+    # every region goes through the native seed pass, in mark_hete_lqseqs
+    # (first iteration) or fill_seed_lqseqs (last)
+    assert c["lq.seed_native"] == asked["regions"]
     dev, host = c.get("kmer.queries_device", 0), c.get("kmer.queries_host", 0)
     assert asked["kmers"] > 0 and dev + host == asked["kmers"]
     assert (dev > 0, host > 0) == {"host": (False, True),
